@@ -1,0 +1,224 @@
+"""Inference entry point: checkpoint -> device decode -> caption JSON.
+
+Counterpart of run_inference / make_serve_fn in comic_tpu/inference.py
+(reference src/infer_fn.py:78-184). The decode runs on the card: uint8
+batch -> eval preprocessing -> Inception-V1 -> beam search (or greedy).
+Artifacts are the same as comic_tpu's:
+
+  - save dir  ``infer_{set}_beam_{B}_lpen_{L}`` under the experiment dir
+  - caption JSON ``captions___{ckpt}.json`` (COCO submission format)
+  - ``infer_speed.txt`` captions/sec line per run
+  - attention-map pickle ``outputs___{ckpt}.pkl`` (optional)
+
+Metric scoring, ``evaluate_model``, ``sweep_checkpoints`` and the CLI wait
+for a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import re
+import time
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from . import DeviceLike, resolve_device
+from .configuration import Config
+from .data.pipeline import InferencePipeline
+from .data.preprocessing import preprocess_for
+from .decoding import beam_search, greedy_or_sample
+from .evaluation.coco_eval import write_caption_json
+from .models.captioner import build_model_spec, init_params, max_decode_steps
+from .tokenization import Vocabulary, ids_to_captions
+from .training import checkpoints as ckpt
+
+pjoin = os.path.join
+
+
+def image_id_from_path(filepath: str):
+    """Reference id rules (infer_fn.py:140-148): a name containing '@'
+    (insta) keeps its STRING stem; otherwise the first '_'-prefixed digit
+    run of the basename is the int COCO id; a name with neither gives the
+    string stem."""
+    stem = os.path.splitext(os.path.basename(filepath))[0]
+    if "@" in stem:
+        return stem
+    m = re.search(r"(?<=_)\d+", stem)
+    return int(m.group(0)) if m else stem
+
+
+def infer_dir_name(config: Config) -> str:
+    lpen = config.infer_length_penalty_weight or 0.0
+    return (f"infer_{config.infer_set}_beam_{config.infer_beam_size}"
+            f"_lpen_{lpen}")
+
+
+def _ckpt_name(ckpt_path: str) -> str:
+    """Suffixless checkpoint name for artifact keys."""
+    name = os.path.basename(ckpt_path.rstrip(os.sep))
+    for suffix in (ckpt._SUFFIX, ckpt._ORBAX_SUFFIX, ckpt._TF_SUFFIX):
+        if name.endswith(suffix):
+            name = name[: -len(suffix)]
+    return name
+
+
+def _refuse_multiprocess() -> None:
+    """Serving is one process per host; refuse inside a multi-process
+    torch.distributed job, whose per-rank outputs would be partial."""
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            "serving under a multi-process torch.distributed job is not "
+            "supported — launch inference as a single-process job per "
+            "host.")
+
+
+def make_serve_fn(spec, config: Config, steps: int,
+                  collect_alignments: bool = True,
+                  device: DeviceLike = None):
+    """The serving fn (params, images_u8) -> (ids (B, T) int32 on the
+    device, alignments (B, H, T, L) or None), for ``device`` (None: the
+    card).
+
+    Beam search when ``infer_beam_size`` > 1 (its attention step is the
+    grouped kernel K1 on the card), greedy otherwise (kernel K2).
+    """
+    device = resolve_device(device)
+    h, w = config.cnn_input_size
+    beam = int(config.infer_beam_size)
+    lpen = float(config.infer_length_penalty_weight or 0.0)
+    preprocess = preprocess_for(config.cnn_name)
+    early = bool(config.get("infer_early_exit"))
+
+    @torch.inference_mode()
+    def serve(params, images_u8):
+        images = preprocess(images_u8, h, w, device)
+        if beam > 1:
+            top, _ = beam_search(params, spec, images, beam_size=beam,
+                                 max_steps=steps, length_penalty=lpen,
+                                 collect_alignments=collect_alignments,
+                                 early_exit=early)
+        else:
+            top = greedy_or_sample(params, spec, images, max_steps=steps,
+                                   collect_alignments=collect_alignments,
+                                   early_exit=early)
+        if not collect_alignments:
+            return top.ids, None
+        return top.ids, top.alignments
+
+    return serve
+
+
+class _HostCopy:
+    """A device->host copy started now and read later, so the host turns
+    batch i's ids into text while the card decodes batch i+1."""
+
+    def __init__(self, x: torch.Tensor):
+        if x.device.type == "cuda":
+            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self.host.copy_(x, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record()
+        else:
+            self.host, self.done = x, None
+
+    def numpy(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()
+
+
+def run_inference(config: Config, ckpt_path: str,
+                  save_attention: bool = False, serve=None, pipe=None,
+                  device: DeviceLike = None) -> Tuple[str, str]:
+    """Caption the configured infer set with one compact checkpoint on
+    ``device`` (None: the card). ``serve``/``pipe`` may be passed in to
+    reuse them across checkpoints; a passed pipe stays open.
+
+    Returns (save_dir, caption_json_path).
+    """
+    _refuse_multiprocess()
+    device = resolve_device(device)
+    vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+    spec = build_model_spec(config, vocab)
+    params = ckpt.load_compact(ckpt_path, init_params(spec, device=device))
+
+    own_pipe = pipe is None
+    if own_pipe:
+        pipe = InferencePipeline(config)
+    try:
+        steps = max_decode_steps(config, vocab)
+        if serve is None:
+            serve = make_serve_fn(spec, config, steps,
+                                  collect_alignments=save_attention,
+                                  device=device)
+        ckpt_name = _ckpt_name(ckpt_path)
+        save_dir = pjoin(config.log_path, infer_dir_name(config))
+        os.makedirs(save_dir, exist_ok=True)
+
+        limit = config.get("infer_attention_max_images")
+        limit = 4 if limit is None else int(limit)  # 0 = maps for none, -1 all
+        all_ids: List = []
+        all_caps: List[str] = []
+        # reference raw-outputs pickle (infer_fn.py:107-151): three
+        # filename-keyed dicts, 'attention' capped at `limit` images
+        raw_outputs: Dict = {"captions": {}, "attention": {}, "image_ids": {}}
+
+        def wants_maps() -> bool:
+            return limit < 0 or len(raw_outputs["attention"]) < limit
+
+        def consume(ids, attn, files):
+            caps = ids_to_captions(ids.numpy(), config.token_type, vocab,
+                                   config.radix_base)
+            for f, c in zip(files, caps):
+                all_ids.append(image_id_from_path(f))
+                all_caps.append(c)
+            if save_attention:
+                maps = attn.numpy() if attn is not None else None
+                for j, (f, c) in enumerate(zip(files, caps)):
+                    raw_outputs["captions"][f] = c
+                    raw_outputs["image_ids"][f] = image_id_from_path(f)
+                    if maps is not None and wants_maps():
+                        raw_outputs["attention"][f] = maps[j]
+            return len(caps)
+
+        n_done = 0
+        t0 = time.time()
+        pending = None  # batch i is consumed while batch i+1 decodes
+        for images, files in iter(pipe):
+            ids, attn = serve(params, images)
+            if save_attention and attn is None:
+                raise ValueError(
+                    "save_attention=True but the serve fn returned no "
+                    "alignment maps — it was built with "
+                    "collect_alignments=False.")
+            ids = _HostCopy(ids)
+            if pending is not None:
+                n_done += consume(*pending)
+            # maps are big ((B, H, T, L) f32): copy them only while wanted
+            attn = _HostCopy(attn) if save_attention and wants_maps() else None
+            pending = (ids, attn, files)
+        if pending is not None:
+            n_done += consume(*pending)
+        dt = time.time() - t0
+
+        if len(set(map(str, all_ids))) != len(all_ids):
+            raise AssertionError("Duplicate image ids in inference output.")
+
+        json_path = pjoin(save_dir, f"captions___{ckpt_name}.json")
+        write_caption_json(json_path, all_ids, all_caps)
+        with open(pjoin(save_dir, "infer_speed.txt"), "a") as f:
+            f.write(f"{ckpt_name}: {n_done / max(dt, 1e-9):.2f} captions/sec "
+                    f"({n_done} images in {dt:.1f}s)\n")
+        if save_attention and raw_outputs["captions"]:
+            with open(pjoin(save_dir, f"outputs___{ckpt_name}.pkl"),
+                      "wb") as f:
+                pickle.dump(raw_outputs, f, pickle.HIGHEST_PROTOCOL)
+    finally:
+        if own_pipe:
+            pipe.close()
+    return save_dir, json_path

@@ -1,0 +1,88 @@
+"""comic_tpu_torch and chip_smoke import neither JAX nor comic_tpu, and the
+port's entry points refuse to run without CUDA unless asked for the CPU."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_HYGIENE = r"""
+import importlib, pkgutil, sys
+import comic_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(comic_tpu_torch.__path__,
+                                                "comic_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "comic_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_comic_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 20
+    assert bad.strip() == "[]"
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+
+
+def _small_spec():
+    from comic_tpu_torch.configuration import Config
+    from comic_tpu_torch.models.captioner import build_model_spec
+    from comic_tpu_torch.tokenization import Vocabulary
+
+    config = Config(token_type="radix", radix_base=16, rnn_size=32,
+                    rnn_word_size=16, attn_num_heads=2,
+                    compute_dtype="float32")
+    vocab = Vocabulary({"<PAD>": -1, "a": 0, "<UNK>": 1, "<GO>": 2,
+                        "<EOS>": 3})
+    return config, build_model_spec(config, vocab)
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(no_card, tmp_path):
+    from comic_tpu_torch import params, resolve_device
+    from comic_tpu_torch.inference import make_serve_fn, run_inference
+    from comic_tpu_torch.models.captioner import init_params
+    from comic_tpu_torch.training.checkpoints import save_compact
+
+    config, spec = _small_spec()
+    tree = init_params(spec, device="cpu")  # the CPU when asked for
+    ckpt = save_compact(str(tmp_path), 1, tree)
+    config.update(wtoi={"<PAD>": -1, "a": 0, "<UNK>": 1, "<GO>": 2,
+                        "<EOS>": 3}, itow={})
+    for call in (lambda: resolve_device(None),
+                 lambda: init_params(spec),
+                 lambda: params.from_jax_tree(params.to_jax_tree(tree)),
+                 lambda: make_serve_fn(spec, config, 4),
+                 lambda: run_inference(config, ckpt)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_chip_smoke_fails_without_card_or_repo(no_card, tmp_path):
+    """No CUDA: non-zero exit and no result line; the same for a directory
+    that holds chip_smoke.py alone."""
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    for cwd in (ROOT, str(tmp_path)):
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
