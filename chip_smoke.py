@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero):
   2. build the CUDA kernels from this checkout's sources (one nvcc each,
      all at once) and print the build time;
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes, with bf16 and f32 keys, and time both;
+     main path's shapes, with bf16 and f32 keys, print its launch plan
+     (cluster size, grid, shared memory a block), and time both;
   4. serve full-width COMIC-256 (Inception-V1 at 224, 8 add_LN heads, LSTM
      512, bf16, beam 3, 60 radix steps, early exit) at batch 25 through
      comic_tpu_torch.inference.run_inference: seeded random weights with
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -40,19 +42,30 @@ OUT = os.path.join(ROOT, "smoke_out")
 SEED = 20260
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# special-function units (tanh, exp): 16 per SM per clock, 132 SMs at the
+# H100 SXM's 1.98 GHz boost clock
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 # main-path shapes: infer batch 25, beam 3, Mixed_4f at 224 (L = 196),
 # 512 attention units in 8 heads
 B, K, L, U, H = 25, 3, 196, 512, 8
-# float32 operations per (query, position, channel): K1 cross term 2,
-# normalize 3, affine 2, tanh 1, v and head sum 2, context 2; K2 takes its
-# statistics in two passes (6) instead of the cross term
-OPS_PER_ELEMENT = {"grouped_add_ln_attention": 12,
-                   "fused_add_ln_attention": 16}
+# float32 operations per (query, position, channel) besides the tanh: K1
+# cross term 2, normalize 3, affine 2, v and head sum 2, context 2; K2
+# takes its statistics in two passes (6) instead of the cross term. Each
+# tanh (one per element) and each softmax exp (one per score) is at least
+# one special-function operation.
+OPS_PER_ELEMENT = {"grouped_add_ln_attention": 11,
+                   "fused_add_ln_attention": 15}
 # kernel vs plain version on the same card, float32 arithmetic on the same
 # stored keys in both: they differ only in summation order and in the
-# device's tanh/exp/rsqrt rounding
-TOL = {"ctx": 1e-4, "align": 1e-5}
+# device's tanh/exp/rsqrt rounding (alignments ~2e-9 apart, context ~1e-7).
+# With bf16 keys both round the alignments to bf16 before the context, and
+# alignments that agree to 1e-9 may still round to neighbouring bf16
+# values. So the context is held twice: to TOL["ctx"] against the plain
+# context product of the kernel's own alignments, and to TOL["ctx"] plus
+# what those roundings explain against the plain version's context (see
+# rounding_slack).
+TOL = {"ctx": 1e-4, "align": 1e-7}
 
 
 def median_ms(fn, iters=50, warmup=5):
@@ -157,6 +170,33 @@ def kernel_inputs(keys_dtype, rows, beams):
     return query, keys, k32.mean(-1), k32.square().mean(-1), vecs
 
 
+def rounding_slack(align, align_p, keys, context):
+    """How far the kernel's context may sit from the plain version's
+    because their alignments round to different neighbours in the keys'
+    dtype: each such alignment moves every channel of its head by its
+    rounding step times |key| (in float32, where rounding does nothing,
+    their own difference does). Raises unless every step is at most their
+    difference plus one step of the dtype (a * eps, or the smallest normal
+    number where the kernel flushes a subnormal exponential to 0) -> slack
+    per context output."""
+    import torch
+
+    step = (align.to(keys.dtype).float()
+            - align_p.to(keys.dtype).float()).abs()
+    info = torch.finfo(keys.dtype)
+    one = ((align - align_p).abs() + info.tiny
+           + torch.maximum(align.abs(), align_p.abs()) * info.eps)
+    if not (step <= one).all():
+        i = (step - one).argmax()
+        raise AssertionError(
+            f"kernel and plain alignments round more than one step apart: "
+            f"{align.flatten()[i].item():.6e} and "
+            f"{align_p.flatten()[i].item():.6e}")
+    # a difference of two values of the keys' dtype that are neighbours, or
+    # a float32 difference, is exact in that dtype
+    return context(step, keys.abs(), num_heads=H)
+
+
 def check_kernels():
     """Phase 3 -> per-kernel records (without launches)."""
     import torch
@@ -171,6 +211,8 @@ def check_kernels():
         for keys_dtype in (torch.float32, torch.bfloat16):
             query, keys, mean, m2, vecs = kernel_inputs(keys_dtype, B, beams)
             if beams is None:
+                plan = k2.fused_add_ln_attention_plan(keys, num_heads=H)
+
                 def kern():
                     return k2.fused_add_ln_attention(query, keys, *vecs,
                                                      num_heads=H)
@@ -178,7 +220,12 @@ def check_kernels():
                 def plain():
                     return k2.fused_add_ln_attention_plain(
                         query, keys, *vecs, num_heads=H)
+
+                context = k2.fused_context_plain
             else:
+                plan = k1.grouped_add_ln_attention_plan(keys, beams,
+                                                        num_heads=H)
+
                 def kern():
                     return k1.grouped_add_ln_attention(
                         query, keys, mean, m2, *vecs, num_heads=H)
@@ -186,16 +233,31 @@ def check_kernels():
                 def plain():
                     return k1.grouped_add_ln_attention_plain(
                         query, keys, mean, m2, *vecs, num_heads=H)
+
+                context = k1.grouped_context_plain
             (ctx, align), (ctx_p, align_p) = kern(), plain()
             torch.cuda.synchronize()
-            err = {"ctx": (ctx - ctx_p).abs().max().item(),
+            slack = rounding_slack(align, align_p, keys, context)
+            direct = (ctx - ctx_p).abs()
+            err = {"ctx": (ctx - context(align, keys, num_heads=H))
+                   .abs().max().item(),
                    "align": (align - align_p).abs().max().item()}
-            print(f"{name} keys={str(keys_dtype)[6:]}: max |kernel - plain|"
-                  f" ctx {err['ctx']:.3e} (tol {TOL['ctx']:.0e}), align "
-                  f"{err['align']:.3e} (tol {TOL['align']:.0e})")
-            if not all(err[k] <= TOL[k] for k in TOL):
+            beyond = (direct - slack).max().item()
+            print(f"{name} keys={str(keys_dtype)[6:]}: cluster of "
+                  f"{plan['cluster']} blocks, grid {plan['grid']}, "
+                  f"{plan['smem_bytes']} B shared memory a block, keys "
+                  f"{'staged' if plan['keys_staged'] else 'not staged'}; "
+                  f"max |kernel - plain| ctx {err['ctx']:.3e} (tol "
+                  f"{TOL['ctx']:.0e}), align {err['align']:.3e} (tol "
+                  f"{TOL['align']:.0e}); against the plain context "
+                  f"{direct.max().item():.3e}, of which alignment rounding "
+                  f"explains up to {slack.max().item():.3e}: "
+                  f"{beyond:.3e} beyond it (tol {TOL['ctx']:.0e})")
+            if not (all(err[k] <= TOL[k] for k in TOL)
+                    and beyond <= TOL["ctx"]):
                 raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version: {err}")
+                                     f"version: {err}, {beyond} beyond "
+                                     f"the rounding slack")
             if not (torch.isfinite(ctx).all() and torch.isfinite(align).all()):
                 raise AssertionError(f"{name} produced non-finite values")
             worst = max(worst, *err.values())
@@ -208,23 +270,30 @@ def check_kernels():
                   + (2 * B * L * 4 if beams else 0)  # key moments
                   + n_q * U * 4 + n_q * H * L * 4)  # ctx, align written
         ops = OPS_PER_ELEMENT[name] * n_q * L * U
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_FLOP_PER_S * 1e3
+        sfu = n_q * L * U + n_q * H * L  # tanh, softmax exp
+        times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "float32 operations": ops / F32_FLOP_PER_S * 1e3,
+                 "special-function operations": sfu / SFU_OPS_PER_S * 1e3}
+        bound_by = max(times, key=times.get)
         records[name] = {
             "name": name, "route": "cuda",
             "source": f"comic_tpu_torch/csrc/{name}.cu",
             "replaces": ("comic_tpu/ops/grouped_attention.py:89" if beams
                          else "comic_tpu/ops/fused_attention.py:69"),
             "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plain_ms": plain_ms, "bound_ms": times[bound_by],
+            "bound_by": "bytes" if bound_by == "bytes" else "operations",
             "library_ms": None,  # no single PyTorch call is add_LN attention
         }
         print(f"{name}: {ms:.4f} ms on the card (plain {plain_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops) * 1e3:.2f} us by "
-              f"{records[name]['bound_by']}: {nbytes / 1e6:.2f} MB, "
-              f"{ops / 1e6:.1f} MFLOP); host time to launch one call "
-              f"{host_ms:.4f} ms (plain {plain_host_ms:.4f} ms)")
+              f"bound {times[bound_by] * 1e3:.2f} us by {bound_by}: "
+              f"{nbytes / 1e6:.2f} MB in {times['bytes'] * 1e3:.2f} us, "
+              f"{ops / 1e6:.1f} MFLOP in "
+              f"{times['float32 operations'] * 1e3:.2f} us, {sfu / 1e6:.2f} M"
+              f" tanh/exp in "
+              f"{times['special-function operations'] * 1e3:.2f} us); host "
+              f"time to launch one call {host_ms:.4f} ms (plain "
+              f"{plain_host_ms:.4f} ms)")
     return records
 
 
@@ -416,9 +485,15 @@ def main():
     print(f"built {len(logs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
+        variant = ""
         for ln in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", ln)
+            if entry:  # kernel<keys type, vector width>
+                vec = re.search(r"Li(\d+)E", entry.group(1))
+                variant = ("<bf16" if "bfloat16" in entry.group(1)
+                           else "<f32") + f", {vec.group(1) if vec else '?'}>"
             if "registers" in ln or "spill" in ln:
-                print(f"  {name}: {ln.strip()}")
+                print(f"  {name}{variant}: {ln.strip()}")
 
     records = check_kernels()
 

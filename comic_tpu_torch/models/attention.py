@@ -9,10 +9,9 @@ kernels (ops.fused_attention K2 for ``attend``, ops.grouped_attention K1
 for ``attend_grouped``). Everywhere else, and always on the CPU, they run
 the torch-ops transcription of comic_tpu's jnp code below.
 
-Where the two differ at bfloat16: the jnp path casts the projected query to
-the keys' dtype before scoring and the alignments to the values' dtype
-before the context product; the kernels keep both in float32. In float32
-they compute the same function.
+Both routes round the projected query to the keys' dtype before scoring
+and the alignments to the values' dtype before the context product, as
+comic_tpu's decode steps do; the kernels do it inside.
 """
 
 from __future__ import annotations

@@ -7,6 +7,9 @@ build happens at first use, from the sources in this package only, into
 the sources and flags, so a changed source is rebuilt and an unchanged one
 is reused. ``build()`` compiles several sources in parallel, one ``nvcc``
 each. Nothing here runs at import time: the CPU tests import every module.
+``DEFINES`` adds ``-D`` flags to every build that follows, under its own
+hash: empty for the shipped kernels, ``("-DADDLN_PHASES",)`` for the
+phase-traced copy that ``tools/kernel_phases.py`` builds.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -27,13 +30,17 @@ KERNELS = ("grouped_add_ln_attention", "fused_add_ln_attention")
 _HEADERS = ("add_ln_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+DEFINES: Tuple[str, ...] = ()
+
+P = ctypes.c_void_p
+I = ctypes.c_int
 
 _lock = threading.Lock()
-_functions: Dict[str, ctypes._CFuncPtr] = {}
+_functions: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def _library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + DEFINES).encode())
     for fn in (f"{name}.cu",) + _HEADERS:
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
@@ -62,7 +69,7 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+        cmd = [_nvcc(), *NVCC_FLAGS, *DEFINES, "-o", tmp,
                os.path.join(CSRC, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -80,20 +87,36 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
     return logs
 
 
-def kernel(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` of ``csrc/<name>.cu``, built if needed;
-    it returns a CUDA error code."""
+def kernel(name: str, argtypes: Sequence,
+           entry: str = "") -> ctypes._CFuncPtr:
+    """The C entry point ``entry`` (default ``name``) of ``csrc/<name>.cu``,
+    built if needed with the current ``DEFINES``; it returns a CUDA error
+    code."""
+    entry = entry or name
+    key = (name, entry, DEFINES)
     with _lock:
-        fn = _functions.get(name)
+        fn = _functions.get(key)
         if fn is None:
             path = _library_path(name)
             if not os.path.exists(path):
                 build([name])
-            fn = getattr(ctypes.CDLL(path), name)
+            fn = getattr(ctypes.CDLL(path), entry)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            _functions[name] = fn
+            _functions[key] = fn
     return fn
+
+
+def launch_plan(name: str, args: Sequence[int]) -> Dict[str, int]:
+    """The cluster plan the C entry ``<name>_plan`` picks for ``args``
+    (keys_bf16, vec, aligned, then the kernel's shape arguments)."""
+    out = (ctypes.c_int * 4)()
+    fn = kernel(name, [I] * len(args) + [P], entry=f"{name}_plan")
+    err = fn(*args, out)
+    if err:
+        raise RuntimeError(f"{name}: no launch plan, CUDA error {err}")
+    return {"cluster": out[0], "grid": out[1], "smem_bytes": out[2],
+            "keys_staged": bool(out[3])}
 
 
 # --- argument checks shared by the wrappers -----------------------------------
@@ -129,5 +152,3 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-P = ctypes.c_void_p
-I = ctypes.c_int

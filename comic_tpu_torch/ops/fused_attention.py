@@ -8,8 +8,11 @@ bound and the design); on a CPU tensor it runs
 launches the kernel or raises.
 
 Each row has its own keys (tied values). The LayerNorm statistics are taken
-in two passes over U, as in the Pallas kernel; the query and the
-alignments stay float32 throughout.
+in two passes over U, as in the Pallas kernel (comic_tpu's decode step
+takes them in closed form; the two differ only by float32 rounding). As in
+that decode step (comic_tpu/models/attention.py:attend), the query is
+rounded to the keys' dtype first and the alignments are rounded to it for
+the context product; the returned alignments stay float32 and unrounded.
 """
 
 from __future__ import annotations
@@ -33,16 +36,25 @@ def fused_add_ln_attention_plain(
     r, l, u = keys.shape
     d = u // num_heads
     k32 = keys.float()
-    s = k32 + query.float()[:, None, :]
+    s = k32 + query.to(keys.dtype).float()[:, None, :]
     mean = s.mean(dim=2, keepdim=True)
     var = (s - mean).square().mean(dim=2, keepdim=True)
     s = (s - mean) * torch.rsqrt(var + LN_EPS)
     s = torch.tanh(s * ln_scale + ln_bias) * v  # (R, L, U)
     e = s.reshape(r, l, num_heads, d).sum(dim=-1) * (1.0 / temperature)
-    align = torch.softmax(e, dim=1).transpose(1, 2)  # (R, H, L)
-    values = k32.reshape(r, l, num_heads, d).permute(0, 2, 1, 3)
-    ctx = torch.matmul(align[:, :, None, :], values)  # (R, H, 1, D)
-    return ctx.reshape(r, u), align.contiguous()
+    align = torch.softmax(e, dim=1).transpose(1, 2).contiguous()
+    return fused_context_plain(align, keys, num_heads=num_heads), align
+
+
+def fused_context_plain(align: torch.Tensor, keys: torch.Tensor, *,
+                        num_heads: int) -> torch.Tensor:
+    """The context over the tied values from alignments (R, H, L) f32,
+    rounded to the keys' dtype first -> (R, U) f32."""
+    r, l, u = keys.shape
+    values = keys.float().reshape(r, l, num_heads, u // num_heads)
+    ctx = torch.matmul(align.to(keys.dtype).float()[:, :, None, :],
+                       values.permute(0, 2, 1, 3))  # (R, H, 1, D)
+    return ctx.reshape(r, u)
 
 
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.P, _cuda.P,
@@ -95,3 +107,14 @@ def fused_add_ln_attention(
 
 #: kernel launches since the count was last set to 0
 fused_add_ln_attention.launches = 0
+
+
+def fused_add_ln_attention_plan(keys: torch.Tensor, *,
+                                num_heads: int) -> dict:
+    """The kernel's launch plan for these keys (on the card): cluster size,
+    grid, shared memory per block, whether the keys are staged."""
+    r, l, u = keys.shape
+    return _cuda.launch_plan("fused_add_ln_attention", [
+        int(keys.dtype == torch.bfloat16),
+        _cuda.vector_width(keys, u // num_heads),
+        int(keys.data_ptr() % 16 == 0), r, l, u, num_heads])

@@ -9,9 +9,12 @@ the plain version: a CUDA call launches the kernel or raises.
 
 K queries per image share that image's UNtiled keys; the values are the
 keys (tied projection). LayerNorm statistics come in closed form from the
-precomputed key moments (attention.AttentionMemory). As in the Pallas
-kernel, the query and the alignments stay float32 throughout; only the
-cross term k . q sees the query rounded to the keys' dtype.
+precomputed key moments (attention.AttentionMemory). As in comic_tpu's
+decode step (comic_tpu/models/attention.py:attend_grouped), the query is
+rounded to the keys' dtype before the statistics and the tanh chain, and
+the alignments are rounded to it for the context product; the returned
+alignments stay float32 and unrounded. (The Pallas kernel keeps the query
+and the alignments in float32; in float32 the two agree.)
 """
 
 from __future__ import annotations
@@ -35,23 +38,31 @@ def grouped_add_ln_attention_plain(
     b, k, u = query.shape
     l = keys.shape[1]
     d = u // num_heads
-    q32 = query.float()
+    q32 = query.to(keys.dtype).float()
     k32 = keys.float()
     mu_q = q32.mean(dim=-1)  # (B, K)
     m2_q = q32.square().mean(dim=-1)
-    cross = torch.matmul(query.to(keys.dtype).float(),
-                         k32.transpose(1, 2))  # (B, K, L)
+    cross = torch.matmul(q32, k32.transpose(1, 2))  # (B, K, L)
     mu = key_mean[:, None, :] + mu_q[:, :, None]
     ex2 = key_m2[:, None, :] + 2.0 * cross / u + m2_q[:, :, None]
     inv = torch.rsqrt(torch.clamp(ex2 - mu.square(), min=0.0) + LN_EPS)
     t = (k32[:, None] + q32[:, :, None, :] - mu[..., None]) * inv[..., None]
     s = torch.tanh(t * ln_scale + ln_bias) * v  # (B, K, L, U)
     e = s.reshape(b, k, l, num_heads, d).sum(dim=-1) * (1.0 / temperature)
-    align = torch.softmax(e, dim=2).transpose(2, 3)  # (B, K, H, L)
-    values = k32.reshape(b, l, num_heads, d).permute(0, 2, 1, 3)
-    ctx = torch.matmul(align.transpose(1, 2), values)  # (B, H, K, D)
-    return (ctx.permute(0, 2, 1, 3).reshape(b, k, u),
-            align.contiguous())
+    align = torch.softmax(e, dim=2).transpose(2, 3).contiguous()
+    return grouped_context_plain(align, keys, num_heads=num_heads), align
+
+
+def grouped_context_plain(align: torch.Tensor, keys: torch.Tensor, *,
+                          num_heads: int) -> torch.Tensor:
+    """The context over the tied values from alignments (B, K, H, L) f32,
+    rounded to the keys' dtype first -> (B, K, U) f32."""
+    b, k, _, l = align.shape
+    u = keys.shape[-1]
+    values = keys.float().reshape(b, l, num_heads, u // num_heads)
+    ctx = torch.matmul(align.to(keys.dtype).float().transpose(1, 2),
+                       values.permute(0, 2, 1, 3))  # (B, H, K, D)
+    return ctx.permute(0, 2, 1, 3).reshape(b, k, u)
 
 
 _ARGTYPES = [_cuda.P, _cuda.P, _cuda.I, _cuda.I, _cuda.P, _cuda.P, _cuda.P,
@@ -111,3 +122,14 @@ def grouped_add_ln_attention(
 
 #: kernel launches since the count was last set to 0
 grouped_add_ln_attention.launches = 0
+
+
+def grouped_add_ln_attention_plan(keys: torch.Tensor, beams: int, *,
+                                  num_heads: int) -> dict:
+    """The kernel's launch plan for these keys (on the card): cluster size,
+    grid, shared memory per block, whether the keys are staged."""
+    b, l, u = keys.shape
+    return _cuda.launch_plan("grouped_add_ln_attention", [
+        int(keys.dtype == torch.bfloat16),
+        _cuda.vector_width(keys, u // num_heads),
+        int(keys.data_ptr() % 16 == 0), b, beams, l, u, num_heads])

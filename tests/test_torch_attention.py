@@ -2,9 +2,13 @@
 the two CUDA kernels against the Pallas kernels they replace (run in
 interpret mode, as tests/test_ops.py runs them) and against the jnp steps.
 
-Tolerances: float32 at rtol 1e-5 / atol 1e-6; bfloat16 keys at rtol 2e-2 /
-atol 2e-3, as tests/test_ops.py allows (the jnp steps round the query and
-the alignments to bfloat16, the kernels keep them in float32).
+Tolerances: float32 at rtol 1e-5 / atol 1e-6. Against the jnp decode steps
+the plain versions round the query and the alignments to bfloat16 where
+those steps do, so bfloat16 keys compare at rtol = atol = 1e-4: what is
+left is float32 summation order and K2's two-pass LayerNorm statistics
+against the closed form. Against the Pallas kernels, bfloat16 keys compare
+at rtol 2e-2 / atol 2e-3, as tests/test_ops.py allows: the Pallas kernels
+keep the query and the alignments in float32.
 """
 
 import jax
@@ -28,12 +32,15 @@ from comic_tpu_torch.ops import grouped_attention as k1
 torch.set_num_threads(1)
 
 F32 = dict(rtol=1e-5, atol=1e-6)
-BF16 = dict(rtol=2e-2, atol=2e-3)
+BF16 = dict(rtol=1e-4, atol=1e-4)  # against the jnp decode steps
+# against the Pallas kernels, which keep the query and alignments in f32
+BF16_PALLAS = dict(rtol=2e-2, atol=2e-3)
 B, K, L, U, H, C = 3, 3, 7, 16, 4, 12
 
 
 def _setup(alignment="add_LN", probability="softmax", projection="tied",
-           context_layer=False, seed=0):
+           context_layer=False, seed=0, dims=(B, K, L, U, H, C)):
+    B, K, L, U, H, C = dims
     kw = dict(num_units=U, num_heads=H, memory_channels=C,
               alignment=alignment, probability=probability,
               fm_projection=projection, context_layer=context_layer)
@@ -119,8 +126,8 @@ def test_attend_alignment_dropout_mask():
 
 # --- K1 / K2 plain versions ----------------------------------------------------
 
-def _kernel_inputs(keys_dtype):
-    jcfg, tcfg, p, tp, fm, q = _setup()
+def _kernel_inputs(keys_dtype, dims=(B, K, L, U, H, C)):
+    jcfg, tcfg, p, tp, fm, q = _setup(dims=dims)
     jmem = jatt.precompute(p, jcfg, fm)
     keys = jmem.keys.astype(keys_dtype)
     k32 = keys.astype(jnp.float32)
@@ -136,7 +143,7 @@ def _kernel_inputs(keys_dtype):
 
 
 @pytest.mark.parametrize("keys_dtype,tol", [(jnp.float32, F32),
-                                            (jnp.bfloat16, BF16)])
+                                            (jnp.bfloat16, BF16_PALLAS)])
 def test_k1_plain_matches_pallas(keys_dtype, tol):
     jcfg, p, q, pq, keys, mean, m2, args, t, tkeys, targs = \
         _kernel_inputs(keys_dtype)
@@ -165,7 +172,7 @@ def test_k1_plain_matches_attend_grouped(keys_dtype, tol):
 
 
 @pytest.mark.parametrize("keys_dtype,tol", [(jnp.float32, F32),
-                                            (jnp.bfloat16, BF16)])
+                                            (jnp.bfloat16, BF16_PALLAS)])
 def test_k2_plain_matches_pallas(keys_dtype, tol):
     jcfg, p, q, pq, keys, mean, m2, args, t, tkeys, targs = \
         _kernel_inputs(keys_dtype)
@@ -190,3 +197,18 @@ def test_k2_plain_matches_attend(keys_dtype, tol):
         t(pq[:, 0]), tkeys, *targs, num_heads=H)
     np.testing.assert_allclose(got_align.numpy(), want_align, **tol)
     np.testing.assert_allclose(got_ctx.numpy(), want_ctx, **tol)
+
+
+def test_k1_plain_matches_attend_grouped_main_width():
+    """The main path's widths (L=196, U=512, H=8, beam 3) in bfloat16, at
+    batch 1: XLA's CPU runtime refuses the reference's batched bf16 context
+    product at these widths for a batch above 1."""
+    dims = (1, 3, 196, 512, 8, 64)
+    jcfg, p, q, pq, keys, mean, m2, args, t, tkeys, targs = \
+        _kernel_inputs(jnp.bfloat16, dims)
+    mem = jatt.AttentionMemory(keys, jsplit(keys, 8), mean, m2)
+    want_ctx, want_align = jatt.attend_grouped(p, jcfg, q, mem)
+    got_ctx, got_align = k1.grouped_add_ln_attention_plain(
+        t(pq), tkeys, t(mean), t(m2), *targs, num_heads=8)
+    np.testing.assert_allclose(got_align.numpy(), want_align, **BF16)
+    np.testing.assert_allclose(got_ctx.numpy(), want_ctx, **BF16)
