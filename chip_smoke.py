@@ -17,10 +17,23 @@ Phases (any failure raises and exits non-zero):
      grouped kernel K1 must have launched;
   5. the same with beam 1 (greedy); the fused kernel K2 must have launched;
   6. at batch 2 in float32 with TF32 off, compare the card's attention
-     memory and top-beam ids with the port's plain CPU path.
+     memory and top-beam ids with the port's plain CPU path;
+  7. train-decoder: the training CLI's decoder stage (COMIC-256 defaults:
+     bf16, dropout, alignment dropout, augment; batch 32) through
+     comic_tpu_torch.training.xe.train_fn for 20 steps on in-memory
+     batches from the smoke weights' compact checkpoint, one full and one
+     compact checkpoint saved and one eval-perplexity pass of 2 x 61
+     rows; K1 and K2 must not launch in the train steps, K2 must launch in
+     the eval pass, and the XE loss must fall;
+  8. train-cnnft: 10 steps of the cnn_finetune stage (nothing frozen, lr
+     1e-3) from the decoder stage's directory, checked the same way;
+  9. train-agree: one float32 train step (TF32 off, batch 2, nothing
+     frozen, dropout and augment off) on the card and on the CPU from the
+     same parameters; loss and updated parameters must agree.
 
-Phases 4 and 5 also time one steady batch and profile one more
-(torch.profiler; the per-kernel table goes to smoke_out/profile_*.txt).
+Phases 4 and 5 also time one steady batch and profile one more, phases 7
+and 8 profile one more train step (torch.profiler; the per-kernel tables
+go to smoke_out/profile_*.txt).
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -49,6 +62,17 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # main-path shapes: infer batch 25, beam 3, Mixed_4f at 224 (L = 196),
 # 512 attention units in 8 heads
 B, K, L, U, H = 25, 3, 196, 512, 8
+# the training phases: COMIC-256's train and eval batches (the eval batch
+# is K2's rows in the eval-perplexity pass), and the steps each stage takes
+TRAIN_B, EVAL_B = 32, 61
+DECODER_STEPS, CNNFT_STEPS = 20, 10
+# the decoder stage's mean XE log-perplexity over its last 3 steps must sit
+# this far (nats) below that of its first 3: about half the drop measured
+# on an H100 80GB HBM3 at 700 W (6.09 -> 5.25, 0.84 nats)
+LOSS_DROP = 0.4
+# train-agree: one float32 train step, card vs CPU, the same operations
+# summed in other orders (cuDNN and cuBLAS against the CPU's kernels)
+TOL_TRAIN = 1e-4
 # float32 operations per (query, position, channel) besides the tanh: K1
 # cross term 2, normalize 3, affine 2, v and head sum 2, context 2; K2
 # takes its statistics in two passes (6) instead of the cross term. Each
@@ -205,11 +229,15 @@ def check_kernels():
     from comic_tpu_torch.ops import grouped_attention as k1
 
     records = {}
-    for name, beams in (("grouped_add_ln_attention", K),
-                        ("fused_add_ln_attention", None)):
+    # K1 and K2 at the serving batch, then K2 at the eval-perplexity batch
+    # of the training phases (one query per caption row)
+    for name, beams, rows in (("grouped_add_ln_attention", K, B),
+                              ("fused_add_ln_attention", None, B),
+                              ("fused_add_ln_attention", None, EVAL_B)):
         worst = 0.0
         for keys_dtype in (torch.float32, torch.bfloat16):
-            query, keys, mean, m2, vecs = kernel_inputs(keys_dtype, B, beams)
+            query, keys, mean, m2, vecs = kernel_inputs(keys_dtype, rows,
+                                                        beams)
             if beams is None:
                 plan = k2.fused_add_ln_attention_plan(keys, num_heads=H)
 
@@ -243,7 +271,7 @@ def check_kernels():
                    .abs().max().item(),
                    "align": (align - align_p).abs().max().item()}
             beyond = (direct - slack).max().item()
-            print(f"{name} keys={str(keys_dtype)[6:]}: cluster of "
+            print(f"{name} R={rows} keys={str(keys_dtype)[6:]}: cluster of "
                   f"{plan['cluster']} blocks, grid {plan['grid']}, "
                   f"{plan['smem_bytes']} B shared memory a block, keys "
                   f"{'staged' if plan['keys_staged'] else 'not staged'}; "
@@ -264,10 +292,10 @@ def check_kernels():
         # times and bound at the main path's dtype (bf16 keys)
         ms, host_ms = device_ms(kern)
         plain_ms, plain_host_ms = device_ms(plain)
-        n_q = B * (beams or 1)
+        n_q = rows * (beams or 1)
         nbytes = (query.numel() * 4 + keys.numel() * keys.element_size()
                   + sum(v.numel() * 4 for v in vecs)
-                  + (2 * B * L * 4 if beams else 0)  # key moments
+                  + (2 * rows * L * 4 if beams else 0)  # key moments
                   + n_q * U * 4 + n_q * H * L * 4)  # ctx, align written
         ops = OPS_PER_ELEMENT[name] * n_q * L * U
         sfu = n_q * L * U + n_q * H * L  # tanh, softmax exp
@@ -275,7 +303,7 @@ def check_kernels():
                  "float32 operations": ops / F32_FLOP_PER_S * 1e3,
                  "special-function operations": sfu / SFU_OPS_PER_S * 1e3}
         bound_by = max(times, key=times.get)
-        records[name] = {
+        record = {
             "name": name, "route": "cuda",
             "source": f"comic_tpu_torch/csrc/{name}.cu",
             "replaces": ("comic_tpu/ops/grouped_attention.py:89" if beams
@@ -285,7 +313,14 @@ def check_kernels():
             "bound_by": "bytes" if bound_by == "bytes" else "operations",
             "library_ms": None,  # no single PyTorch call is add_LN attention
         }
-        print(f"{name}: {ms:.4f} ms on the card (plain {plain_ms:.4f} ms, "
+        if name in records:  # K2 at the eval batch: kept beside the main one
+            records[name]["eval_shape"] = {
+                "rows": rows, "max_abs_err": worst, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": times[bound_by],
+                "plan": plan}
+        else:
+            records[name] = record
+        print(f"{name} R={rows}: {ms:.4f} ms on the card (plain {plain_ms:.4f} ms, "
               f"bound {times[bound_by] * 1e3:.2f} us by {bound_by}: "
               f"{nbytes / 1e6:.2f} MB in {times['bytes'] * 1e3:.2f} us, "
               f"{ops / 1e6:.1f} MFLOP in "
@@ -460,6 +495,245 @@ def agreement_phase(ckpt_state):
         raise AssertionError("card and CPU encoders disagree")
 
 
+class MemoryImages:
+    """The training pipelines' image loader: a seeded uint8 256x256 image
+    per record path, made in memory (no image files are decoded)."""
+
+    def load(self, paths):
+        import numpy as np
+
+        out = np.empty((len(paths), 256, 256, 3), np.uint8)
+        for i, p in enumerate(paths):
+            idx = int(re.search(r"(\d+)\.jpg$", p).group(1))
+            out[i] = np.random.default_rng([SEED, idx]).integers(
+                0, 256, (256, 256, 3), dtype=np.uint8)
+        return out
+
+
+def caption_records(split, n, first):
+    """n (path, tokens) records of 8-20 words of the smoke vocabulary, so
+    at most 42 radix steps a caption."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED, first])
+    return [(f"images/COCO_{split}_{first + i:012d}.jpg",
+             ["<GO>"] + [f"w{w}" for w in rng.integers(
+                 0, 10000, int(rng.integers(8, 21)))] + ["<EOS>"])
+            for i in range(n)]
+
+
+class CountedEval:
+    """The eval pipeline, recording the kernels' launch counts at the start
+    and end of every eval-perplexity pass (evaluate_perplexity reads only
+    ``epoch()``)."""
+
+    def __init__(self, pipe, kernels):
+        self.pipe, self.kernels, self.passes = pipe, kernels, []
+
+    def epoch(self):
+        start = [k.launches for k in self.kernels]
+        yield from self.pipe.epoch()
+        self.passes.append([k.launches - s
+                            for k, s in zip(self.kernels, start)])
+
+    def close(self):
+        self.pipe.close()
+
+
+def train_phase(stage, steps, ckpt_path, kernels):
+    """Phases train-decoder / train-cnnft: the stage's config from the
+    training CLI's own stage chain (comic_tpu_torch.cli.train), at
+    COMIC-256 defaults (bf16, dropout, alignment dropout, augment), then
+    train_fn on the card for ``steps`` steps on in-memory batches, saving
+    a full and a compact checkpoint and running one eval-perplexity pass
+    of 2 x 61 rows at the end. K1 and K2 must launch 0 times in the train
+    steps; K2 must launch in the eval pass. -> (eval launches per kernel,
+    summary)"""
+    import numpy as np
+    import torch
+
+    from comic_tpu_torch.cli.train import stage_config
+    from comic_tpu_torch.data.pipeline import TrainPipeline
+    from comic_tpu_torch.tokenization import Vocabulary
+
+    argv = ["--train_mode", stage, "--name", "smoke",
+            "--log_root", os.path.join(OUT, "train"),
+            "--dataset_dir", os.path.join(OUT, "train", "data")]
+    if stage == "decoder":
+        argv += ["--cnn_ckpt_path", ckpt_path]
+    stage_fn, config = stage_config(argv)
+    tag = {"decoder": "train-decoder", "cnn_finetune": "train-cnnft"}[stage]
+    vocab_cfg = smoke_config(1, B, "bfloat16")
+    config.update(wtoi=vocab_cfg.wtoi, itow=vocab_cfg.itow,
+                  vocab_size=len(vocab_cfg.itow))
+    vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+    n_train = TRAIN_B * DECODER_STEPS  # one epoch = the decoder phase
+    train_pipe = TrainPipeline(config, vocab, "train",
+                               records=caption_records("train", n_train, 0),
+                               loader=MemoryImages())
+    eval_pipe = CountedEval(TrainPipeline(
+        config, vocab, "valid",
+        records=caption_records("valid", 2 * EVAL_B, n_train),
+        loader=MemoryImages()), kernels)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stage_fn(config, max_steps_override=steps, train_pipe=train_pipe,
+             eval_pipe=eval_pipe)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    total = [k.launches for k in kernels]
+    eval_launches = [sum(p[i] for p in eval_pipe.passes)
+                     for i in range(len(kernels))]
+    names = [k.__name__ for k in kernels]
+    if len(eval_pipe.passes) != 1:
+        raise AssertionError(f"{tag}: {len(eval_pipe.passes)} eval passes, "
+                             "expected 1")
+    train_launches = [t - e for t, e in zip(total, eval_launches)]
+    if any(train_launches):
+        raise AssertionError(f"{tag}: kernels launched under autograd: "
+                             f"{dict(zip(names, train_launches))}")
+    k2 = names.index("fused_add_ln_attention")
+    if eval_launches[k2] <= 0:
+        raise AssertionError(f"{tag}: K2 never launched in the eval pass")
+
+    with open(os.path.join(config.log_path, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    logs = [e for e in events if "log_ppl" in e]
+    ppl = [e["eval_perplexity"] for e in events if "eval_perplexity" in e]
+    if [e["step"] for e in logs] != list(range(1, steps + 1)) or not ppl:
+        raise AssertionError(f"{tag}: events.jsonl has steps "
+                             f"{[e['step'] for e in logs]}, eval {ppl}")
+    losses = [e["log_ppl"] for e in logs]
+    if not (np.isfinite(losses).all() and np.isfinite(ppl).all()):
+        raise AssertionError(f"{tag}: non-finite loss {losses} or {ppl}")
+    saved = sorted(f for f in os.listdir(config.log_path)
+                   if f.endswith(".msgpack"))
+    if saved != [f"model-{steps}.msgpack", f"model_compact-{steps}.msgpack"]:
+        raise AssertionError(f"{tag}: checkpoints {saved}")
+    # the first 3 steps hold the cuDNN autotuning and allocator growth
+    step_ms = [TRAIN_B / e["examples_per_sec"] * 1e3 for e in logs[3:]]
+    med = statistics.median(step_ms)
+    head, tail = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    print(f"{tag}: {steps} steps of batch {TRAIN_B} in {wall:.2f} s "
+          f"through train_fn (restore, saves and the eval pass included); "
+          f"steady steps {med:.2f} ms median ({TRAIN_B / med * 1e3:.1f} "
+          f"examples/s; {min(step_ms):.2f}-{max(step_ms):.2f} ms); peak "
+          f"memory {peak_gb:.2f} GiB; XE log-ppl first 3 steps {head:.4f}, "
+          f"last 3 {tail:.4f}; eval perplexity {ppl[-1]:.3f} over "
+          f"{2 * EVAL_B} rows; launches in the train steps "
+          f"{dict(zip(names, train_launches))}, in the eval pass "
+          f"{dict(zip(names, eval_launches))}")
+    profile_train_step(config, vocab, train_pipe, tag)
+    train_pipe.close()
+    eval_pipe.close()
+    return eval_launches, {"head": head, "tail": tail, "losses": losses}
+
+
+def profile_train_step(config, vocab, train_pipe, tag):
+    """Two more train steps of the stage from its saved compact weights,
+    then one under torch.profiler: device busy time against the wall and
+    the top kernels (table in smoke_out/profile_<tag>.txt)."""
+    import torch
+
+    from comic_tpu_torch.models.captioner import build_model_spec, init_params
+    from comic_tpu_torch.training.checkpoints import load_compact
+    from comic_tpu_torch.training.optimizer import Optimizer, set_trainable
+    from comic_tpu_torch.training.xe import TrainState, make_train_step
+
+    spec = build_model_spec(config, vocab)
+    params = load_compact(config.log_path, init_params(spec, device="cuda"))
+    opt = Optimizer(params, lambda n: float(config.lr_end),
+                    adam_epsilon=config.adam_epsilon,
+                    freeze_scopes=config.freeze_scopes)
+    set_trainable(params, opt.mask)
+    step = make_train_step(spec, config, tuple(config.cnn_input_size))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images, caps = next(iter(train_pipe))
+    state = [TrainState(params, opt, 0)]
+
+    def one(*_):
+        state[0], metrics = step(state[0], images, caps, gen)
+        return metrics
+
+    for _ in range(2):
+        float(one()["total_loss"])
+    busy_ms, wall_ms, top = profile_serve(one, None, None, tag)
+    if not top:
+        print(f"{tag} profiled step: the profiler recorded no device time")
+        return
+    print(f"{tag} profiled step (caption width {caps.shape[1]}): device busy "
+          f"{busy_ms:.2f} ms of {wall_ms:.2f} ms wall ({busy_ms / wall_ms:.1%}"
+          f"; the profiler adds host time); top kernels: " + "; ".join(
+              f"{name[:48]} {n}x {us / 1e3:.2f} ms"
+              for name, (n, us) in top))
+
+
+def train_agree_phase(ckpt_state):
+    """Phase train-agree: float32, TF32 off, batch 2, full width, nothing
+    frozen (the cnn_finetune stage's optimizer), dropout and augment off:
+    one make_train_step step on the card and on the CPU from the same
+    parameters. The loss and every updated leaf are held to TOL_TRAIN
+    relative (a leaf against its own largest magnitude)."""
+    import numpy as np
+    import torch
+
+    from comic_tpu_torch.data.pipeline import pad_rows
+    from comic_tpu_torch.models.captioner import build_model_spec, tree_to
+    from comic_tpu_torch.ops import fused_attention as k2
+    from comic_tpu_torch.ops import grouped_attention as k1
+    from comic_tpu_torch.tokenization import Vocabulary, encode_caption_tokens
+    from comic_tpu_torch.training.optimizer import (Optimizer, set_trainable,
+                                                    tree_items)
+    from comic_tpu_torch.training.xe import TrainState, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = smoke_config(1, 2, "float32")
+    config.update(dropout_rnn_in=0.0, dropout_rnn_out=0.0, attn_keep_prob=1.0,
+                  cnn_input_augment=False, freeze_scopes="", lr_start=1e-3)
+    vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+    spec = build_model_spec(config, vocab)
+    images = image_batches(1, 2)[0][0]
+    caps = pad_rows([encode_caption_tokens(t, "radix", vocab, 256)
+                     for _, t in caption_records("agree", 2, 0)], 42)
+    kernels = (k1.grouped_add_ln_attention, k2.fused_add_ln_attention)
+    out = {}
+    def clone(tree):
+        return ({k: clone(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.clone())
+
+    for dev in ("cuda", "cpu"):
+        # a copy: the step updates the parameters in place
+        params = tree_to(clone(ckpt_state), torch.device(dev))
+        opt = Optimizer(params, lambda n: 1e-3, freeze_scopes="")
+        set_trainable(params, opt.mask)
+        step = make_train_step(spec, config, (224, 224), device=dev)
+        before = [k.launches for k in kernels]
+        state, metrics = step(TrainState(params, opt, 0), images, caps)
+        if [k.launches for k in kernels] != before:
+            raise AssertionError("a kernel launched in a train step")
+        out[dev] = (metrics["total_loss"].item(),
+                    {p: v.detach().cpu() for p, v in tree_items(state.params)})
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst, worst_leaf = 0.0, ""
+    for path, want in out["cpu"][1].items():
+        got = out["cuda"][1][path]
+        rel = ((got - want).abs().max() / want.abs().max().clamp(
+            min=1e-30)).item()
+        if rel > worst:
+            worst, worst_leaf = rel, "/".join(path)
+    print(f"train-agree (float32, TF32 off, batch 2, one step, nothing "
+          f"frozen): loss card {out['cuda'][0]:.6f} vs CPU "
+          f"{out['cpu'][0]:.6f}, relative difference {loss_rel:.2e} (tol "
+          f"{TOL_TRAIN:.0e}); largest relative difference of the updated "
+          f"parameters {worst:.2e} at {worst_leaf} (tol {TOL_TRAIN:.0e})")
+    if not (loss_rel <= TOL_TRAIN and worst <= TOL_TRAIN
+            and np.isfinite(out["cuda"][0])):
+        raise AssertionError("the card's train step disagrees with the CPU's")
+
+
 def main():
     import torch
 
@@ -509,6 +783,18 @@ def main():
     records["fused_add_ln_attention"]["launches"] = serve_phase(
         1, k2.fused_add_ln_attention, ckpt_path, batches)
     agreement_phase(state)
+
+    # training: the decoder stage from the smoke weights' compact
+    # checkpoint, then cnn_finetune from the decoder stage's directory
+    kernels = [k1.grouped_add_ln_attention, k2.fused_add_ln_attention]
+    dec_eval, dec = train_phase("decoder", DECODER_STEPS, ckpt_path, kernels)
+    if not dec["tail"] < dec["head"] - LOSS_DROP:
+        raise AssertionError(f"train-decoder: the XE loss did not fall by "
+                             f"{LOSS_DROP}: {dec['losses']}")
+    ft_eval, _ = train_phase("cnn_finetune", CNNFT_STEPS, None, kernels)
+    for i, k in enumerate(kernels):
+        records[k.__name__]["launches"] += dec_eval[i] + ft_eval[i]
+    train_agree_phase(state)
 
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))

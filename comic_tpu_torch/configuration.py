@@ -4,8 +4,9 @@ A typed attribute bag with the reference's full flag surface and defaults
 (reference src/train.py:25-164,281-302 and
 reference common/configuration.py:18-59). Like the reference, the
 config is the experiment record: training pickles it into the experiment
-directory as ``config.pkl`` (writing it comes with the port's training
-slice), and inference reloads it verbatim. Unlike the reference we keep explicit typed
+directory as ``config.pkl`` (``Config.save``, the same record comic_tpu
+writes, so each package loads the other's), and inference reloads it
+verbatim. Unlike the reference we keep explicit typed
 defaults here instead of scattering them across argparse + kwargs.
 
 ``load_config`` can also ingest the reference's Python-2 pickles
@@ -17,7 +18,12 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Dict
+import time
+from typing import Any, Dict, Optional
+
+# Version of the config.pkl record; load_config migrates older ones. The
+# same marker and number as comic_tpu's, so one record serves both.
+CONFIG_VERSION = 2
 
 
 # Defaults mirror src/train.py argparse defaults + coded kwargs (:281-302).
@@ -165,6 +171,40 @@ class Config:
         keys = sorted(self.__dict__)
         inner = ", ".join(f"{k}={self.__dict__[k]!r}" for k in keys[:8])
         return f"Config({inner}, ... {len(keys)} fields)"
+
+    # --- persistence (reference configuration.py:28-52) -------------------
+    def save(self, log_path: Optional[str] = None) -> str:
+        """Write ``config___<stamp>.txt`` (human-readable) and
+        ``config.pkl`` (the record inference reloads, atomically, with the
+        version marker); returns the pickle's path."""
+        log_path = log_path or self.log_path
+        os.makedirs(log_path, exist_ok=True)
+        stamp = time.strftime("%m-%d_%H-%M-%S")
+        with open(os.path.join(log_path, f"config___{stamp}.txt"), "w") as f:
+            for k in sorted(self.__dict__):
+                if k in ("wtoi", "itow"):
+                    f.write(f"{k} = <{len(self.__dict__[k] or {})} entries>\n")
+                else:
+                    f.write(f"{k} = {self.__dict__[k]}\n")
+        pkl = os.path.join(log_path, "config.pkl")
+        d = self.to_dict()
+        d["_comic_tpu_config_version"] = CONFIG_VERSION
+        # a crash mid-dump must not leave a truncated record that
+        # overwrite_safety_check would then refuse to replace
+        tmp = f"{pkl}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(d, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, pkl)
+        return pkl
+
+    def overwrite_safety_check(self, overwrite: bool) -> None:
+        """Refuse to clobber an existing experiment unless resuming
+        (reference configuration.py:38-47)."""
+        exists = os.path.exists(os.path.join(self.log_path, "config.pkl"))
+        if exists and not (overwrite or self.resume_training):
+            raise FileExistsError(
+                f"Experiment dir already has a config.pkl: {self.log_path}. "
+                "Pass resume/overwrite to proceed.")
 
 
 def load_config(path: str) -> Config:

@@ -1,1 +1,1 @@
-"""Eval preprocessing, caption files and the inference pipeline."""
+"""Preprocessing, caption files and the training and inference pipelines."""

@@ -1,14 +1,61 @@
-"""Inference file lists; counterpart of comic_tpu/data/captions.py
-(reference manager_image_caption.py:64-80)."""
+"""Caption dataset file IO; counterpart of comic_tpu/data/captions.py.
+
+The on-disk contract with the reference's offline prepro stage:
+  - caption files ``{pattern}_{split}.txt``, one line per (image, caption):
+    ``filepath,<GO> w0 w1 ... wN <EOS>`` (reference prepro_base.py:250-253,
+    read at manager_image_caption.py:127-131);
+  - vocab JSONs ``{pattern}_wtoi.json`` / ``{pattern}_itow.json``;
+  - inference file lists ``filenames_{valid,test}.txt`` or a raw directory
+    of images (manager_image_caption.py:64-80).
+"""
 
 from __future__ import annotations
 
 import os
-from typing import List
+from typing import Dict, List, Sequence, Tuple
+
+from ..tokenization import Vocabulary
 
 pjoin = os.path.join
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp")
+
+
+def read_caption_file(path: str) -> List[Tuple[str, List[str]]]:
+    """-> list of (relative filepath, token list incl. <GO>/<EOS>)."""
+    records = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            filepath, caption = line.split(",", 1)
+            records.append((filepath, caption.split(" ")))
+    return records
+
+
+def caption_file_path(dataset_dir: str, pattern: str, split: str) -> str:
+    if "{}" not in pattern:
+        raise ValueError("`dataset_file_pattern` must have `{}`.")
+    return pjoin(dataset_dir, "captions", pattern.format(split) + ".txt")
+
+
+def load_vocab(dataset_dir: str, pattern: str) -> Vocabulary:
+    base = pjoin(dataset_dir, "captions")
+    return Vocabulary.load(pjoin(base, pattern.format("wtoi") + ".json"),
+                           pjoin(base, pattern.format("itow") + ".json"))
+
+
+def group_by_image(records: Sequence[Tuple[str, List[str]]],
+                   max_refs: int = 5) -> List[Tuple[str, List[str]]]:
+    """Caption records grouped per image: (filepath, reference strings
+    without <GO>/<EOS>, at most ``max_refs``), in first-seen order
+    (reference manager_image_caption.py:384-396,464-469)."""
+    grouped: Dict[str, List[str]] = {}
+    for fp, tokens in records:
+        text = " ".join(tokens).replace("<GO> ", "").replace(" <EOS>", "")
+        grouped.setdefault(fp, []).append(text)
+    return [(fp, refs[:max_refs]) for fp, refs in grouped.items()]
 
 
 def infer_file_list(dataset_dir: str, infer_set: str,

@@ -1,23 +1,89 @@
-"""Inference input pipeline; counterpart of InferencePipeline,
-_ImageLoaderPool and _prefetch in comic_tpu/data/pipeline.py.
+"""Input pipelines; counterpart of TrainPipeline, InferencePipeline,
+_ImageLoaderPool and _prefetch in comic_tpu/data/pipeline.py (reference
+manager_image_caption.py:27-509).
 
 A thread pool decodes and resizes images on the host into fixed 256x256
 uint8 batches, and a bounded queue prefetches batches ahead of the device.
-The packed-HDF5 source and the training pipelines wait for later slices.
+Training batches are bucketed by caption length and padded UP to their
+bucket's bound (comic_tpu's static shapes), drawn in comic_tpu's order from
+``random.Random(seed)``, so both packages see the same batches. The
+packed-HDF5 source, the VGG host modes and multi-process sharding wait for
+later slices.
 """
 
 from __future__ import annotations
 
 import queue
+import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..configuration import Config
+from ..tokenization import (RadixCodec, Vocabulary, build_char_vocab,
+                            encode_caption_tokens)
 from . import captions as cap_io
 from .preprocessing import RESIZE_SIZE, load_and_resize_host
+
+PAD_ID = -1
+
+
+def bucket_boundaries(config: Config, vocab: Vocabulary,
+                      caption_len_thres: int = 20,
+                      max_encoded_len: Optional[int] = None) -> List[int]:
+    """Sequence-length bucket upper bounds plus an overflow bucket.
+
+    The first three bounds are the reference's (COCO word [11,13,15],
+    Insta [7,10,13], char [45,55,70]/[29,42,61], radix = word bounds x
+    digit width; manager_image_caption.py:83-86,246-247,293-296). Each
+    batch pads up to its bucket's bound; the overflow bucket is capped at
+    the longest possible caption, raised to ``max_encoded_len`` (the
+    longest encoded caption in the data) so that no caption is truncated.
+    """
+    pattern = config.dataset_file_pattern or ""
+    is_insta = "insta" in pattern
+    if config.token_type == "char":
+        bounds = [29, 42, 61] if is_insta else [45, 55, 70]
+        cap = caption_len_thres * 6 + 2
+    elif config.token_type == "radix":
+        width = RadixCodec(len(vocab), config.radix_base).word_len
+        words = [7, 10, 13] if is_insta else [11, 13, 15]
+        bounds = [b * width for b in words]
+        cap = caption_len_thres * width + 2
+    else:
+        bounds = [7, 10, 13] if is_insta else [11, 13, 15]
+        cap = caption_len_thres + 2
+    if max_encoded_len is not None:
+        cap = max(cap, int(max_encoded_len))
+    return bounds + [cap]
+
+
+def pick_bucket(length: int, bounds: Sequence[int]) -> int:
+    for i, b in enumerate(bounds):
+        if length <= b:
+            return i
+    return len(bounds) - 1
+
+
+def pad_rows(rows: Sequence[np.ndarray], width: int) -> np.ndarray:
+    out = np.full((len(rows), width), PAD_ID, np.int32)
+    for i, r in enumerate(rows):
+        out[i, : min(len(r), width)] = r[:width]
+    return out
+
+
+def host_resize_mode(config: Config, is_training: bool) -> str:
+    """Host resize policy per encoder family: 'square' for inception-style
+    nets; the vgg/resnet aspect modes (not yet ported here) otherwise
+    (reference preprocessing_factory.py:31-84)."""
+    from ..models.encoders import get_encoder
+
+    if get_encoder(config.cnn_name).preprocessing != "vgg":
+        return "square"
+    return "aspect_train" if is_training else "aspect_eval"
 
 
 def _check_square_resize(config: Config) -> None:
@@ -122,6 +188,143 @@ def _prefetch(gen: Iterator, depth: int,
             t.join(timeout=10.0)
 
     return consume()
+
+
+def _refuse_multiprocess() -> None:
+    """The port's pipelines feed one process; refuse inside a
+    multi-process torch.distributed job, whose ranks would each train on
+    the whole batch (data parallelism is not yet ported)."""
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            "TrainPipeline under a multi-process torch.distributed job is "
+            "not yet ported to comic_tpu_torch — train in one process.")
+
+
+class TrainPipeline:
+    """Training/eval batches of (images_u8, caption_ids); one instance per
+    split. Mutates the config with the derived ``split_sizes`` and (train)
+    ``max_step`` as comic_tpu and the reference do
+    (manager_image_caption.py:55,132,141).
+
+    ``records`` overrides the split's caption file; ``loader`` (anything
+    with ``load(paths) -> (N, 256, 256, 3) uint8``) overrides the image
+    files, e.g. with in-memory images.
+    """
+
+    def __init__(self, config: Config, vocab: Vocabulary, split: str,
+                 records: Optional[List[Tuple[str, List[str]]]] = None,
+                 num_workers: int = 8, seed: Optional[int] = None,
+                 loader=None):
+        _refuse_multiprocess()
+        self.config = config
+        self.split = split
+        self.is_training = "train" in split
+        if config.token_type == "char":
+            vocab = build_char_vocab()
+            config.wtoi, config.itow = vocab.wtoi, dict(vocab.itow)
+            config.vocab_size = len(vocab.itow)
+        self.vocab = vocab
+        if records is None:
+            records = cap_io.read_caption_file(cap_io.caption_file_path(
+                config.dataset_dir, config.dataset_file_pattern, split))
+        self.records = records
+        self._encoded = [encode_caption_tokens(toks, config.token_type,
+                                               vocab, config.radix_base)
+                         for _, toks in records]
+        self.bounds = bucket_boundaries(
+            config, vocab,
+            max_encoded_len=max((len(r) for r in self._encoded), default=0))
+        self.batch_size = (config.batch_size_train if self.is_training
+                           else config.batch_size_eval)
+        if loader is None:
+            _check_square_resize(config)
+            loader = _ImageLoaderPool(
+                num_workers, tf1_exact=bool(config.get("host_resize_tf1")))
+        self.loader = loader
+        self.rng = random.Random(
+            seed if seed is not None else config.rand_seed)
+        if config.split_sizes is None:
+            config.split_sizes = {}
+        config.split_sizes[split] = len(records)
+        if self.is_training:
+            config.max_step = int(len(records) / self.batch_size
+                                  * config.max_epoch)
+        elif len(records) % self.batch_size != 0:
+            # the eval split must tile exactly (reference manager:123,145)
+            raise ValueError(
+                f"Eval batch size {self.batch_size} must divide eval "
+                f"split size {len(records)}")
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return len(self.records) // self.batch_size
+
+    def _epoch_order(self) -> List[int]:
+        order = list(range(len(self.records)))
+        if self.is_training:
+            self.rng.shuffle(order)
+        return order
+
+    def _batches_of_indices(self) -> Iterator[List[int]]:
+        """Bucket-homogeneous index batches covering one epoch; an eval
+        split then flushes the per-bucket leftovers as mixed batches, so
+        every record is seen (padding is loss-masked)."""
+        buckets: List[List[int]] = [[] for _ in self.bounds]
+        for idx in self._epoch_order():
+            b = pick_bucket(len(self._encoded[idx]), self.bounds)
+            buckets[b].append(idx)
+            if len(buckets[b]) == self.batch_size:
+                yield buckets[b]
+                buckets[b] = []
+        if not self.is_training:
+            rest = [i for b in buckets for i in b]
+            for lo in range(0, len(rest), self.batch_size):
+                yield rest[lo: lo + self.batch_size]
+
+    def _make_batch(self, idxs: List[int]) -> Tuple[np.ndarray, np.ndarray]:
+        rows = [self._encoded[i] for i in idxs]
+        width = self.bounds[max(pick_bucket(len(r), self.bounds)
+                                for r in rows)]
+        paths = [cap_io.pjoin(self.config.dataset_dir, self.records[i][0])
+                 for i in idxs]
+        return self.loader.load(paths), pad_rows(rows, width)
+
+    def epoch(self, prefetch_depth: int = 4
+              ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """One pass over the split: full coverage for an eval split; for a
+        training split a one-epoch sample whose bucket state resets (the
+        training loop uses ``iter(pipe)``)."""
+        gen = (self._make_batch(idxs) for idxs in self._batches_of_indices())
+        return _prefetch(gen, prefetch_depth)
+
+    def __iter__(self):
+        if not self.is_training:
+            def eval_gen():
+                while True:
+                    yield from self.epoch()
+
+            return eval_gen()
+
+        # bucket state persists ACROSS epochs, like the reference's repeated
+        # tf.data + bucket_by_sequence_length: a reset per epoch starves
+        # when no bucket fills a batch within one epoch
+        def gen():
+            buckets: List[List[int]] = [[] for _ in self.bounds]
+            while True:
+                for idx in self._epoch_order():
+                    b = pick_bucket(len(self._encoded[idx]), self.bounds)
+                    buckets[b].append(idx)
+                    if len(buckets[b]) == self.batch_size:
+                        yield self._make_batch(buckets[b])
+                        buckets[b] = []
+
+        return _prefetch(gen(), 4)
+
+    def close(self):
+        if hasattr(self.loader, "close"):
+            self.loader.close()
 
 
 class InferencePipeline:

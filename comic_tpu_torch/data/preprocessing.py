@@ -1,15 +1,21 @@
-"""Image preprocessing, eval path; counterpart of
+"""Image preprocessing, inception style; counterpart of
 comic_tpu/data/preprocessing.py (reference
-inception_preprocessing_radix.py:204-278).
+inception_preprocessing_radix.py:158-278).
 
 Host: decode a file and resize it to a fixed 256x256 uint8 RGB image
 (cv2, else PIL, imported lazily). Device: the batch crosses as uint8 NHWC
 and becomes the encoder's NCHW float input in one function:
-  central crop-or-pad to (out_h, out_w) -> /255 -> (x - .5) * 2.
-The train-time augment and the VGG/ResNet path wait for later slices.
+  train: random horizontal flip -> random (out_h, out_w) crop
+  eval:  central crop-or-pad to (out_h, out_w)
+  then /255 -> (x - .5) * 2.
+The train-time draws (a flip and two crop offsets per image) come from an
+explicit ``torch.Generator``; ``augment`` takes them as tensors, so a test
+can give it comic_tpu's. The VGG/ResNet path waits for a later slice.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,10 +39,42 @@ def central_crop_or_pad(images: torch.Tensor, out_h: int, out_w: int
     return out
 
 
+def draw_augment(generator: torch.Generator, batch: int, in_h: int,
+                 in_w: int, out_h: int, out_w: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(flips (B,) bool, off_y (B,), off_x (B,)) on the generator's device:
+    a fair coin per image and crop offsets uniform over every position
+    that fits, as comic_tpu's _augment_one draws them."""
+    dev = generator.device
+    flips = torch.rand(batch, generator=generator, device=dev) < 0.5
+    off_y = torch.randint(0, in_h - out_h + 1, (batch,),
+                          generator=generator, device=dev)
+    off_x = torch.randint(0, in_w - out_w + 1, (batch,),
+                          generator=generator, device=dev)
+    return flips, off_y, off_x
+
+
+def augment(images: torch.Tensor, out_h: int, out_w: int,
+            flips: torch.Tensor, off_y: torch.Tensor, off_x: torch.Tensor
+            ) -> torch.Tensor:
+    """Train augment of a (B, H, W, C) batch: image b is flipped left to
+    right where flips[b], then cropped to (out_h, out_w) at (off_y[b],
+    off_x[b]) of the flipped image (comic_tpu _augment_one)."""
+    b, _, w, _ = images.shape
+    rows = off_y[:, None] + torch.arange(out_h, device=images.device)
+    cols = off_x[:, None] + torch.arange(out_w, device=images.device)
+    cols = torch.where(flips[:, None], w - 1 - cols, cols)
+    batch = torch.arange(b, device=images.device)[:, None, None]
+    return images[batch, rows[:, :, None], cols[:, None, :]]
+
+
 def preprocess_batch(images_u8, out_h: int, out_w: int,
-                     device: torch.device) -> torch.Tensor:
+                     device: torch.device, training: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
     """(B, 256, 256, 3) uint8 (numpy or tensor) -> (B, 3, out_h, out_w)
-    float32 in [-1, 1] on ``device``, eval mode."""
+    float32 in [-1, 1] on ``device``. ``training`` takes the random flip
+    and crop, drawn from ``generator``."""
     images = torch.as_tensor(images_u8).to(device, non_blocking=True)
     in_h, in_w = images.shape[1], images.shape[2]
     if out_h > in_h or out_w > in_w:
@@ -44,7 +82,13 @@ def preprocess_batch(images_u8, out_h: int, out_w: int,
             f"cnn_input_size ({out_h},{out_w}) exceeds the host-resized "
             f"image ({in_h},{in_w}); the reference-faithful pipeline "
             f"crops, never upsamples. Use cnn_input_size <= {in_h}.")
-    x = central_crop_or_pad(images.float(), out_h, out_w)
+    if training:
+        draws = draw_augment(generator, images.shape[0], in_h, in_w,
+                             out_h, out_w)
+        x = augment(images.float(), out_h, out_w,
+                    *(t.to(device) for t in draws))
+    else:
+        x = central_crop_or_pad(images.float(), out_h, out_w)
     # (x / 255 - .5) * 2 as the one fused multiply-add x * (2/255) - 1 that
     # XLA folds the reference's expression into: same input bits. A zero
     # pad pixel maps to -1 either way.
@@ -53,7 +97,7 @@ def preprocess_batch(images_u8, out_h: int, out_w: int,
 
 
 def preprocess_for(cnn_name: str):
-    """Encoder name -> batched eval preprocessing fn (reference
+    """Encoder name -> batched preprocessing fn (reference
     preprocessing_factory.py:31-84 dispatch)."""
     from ..models.encoders import get_encoder
 

@@ -1,1 +1,1 @@
-"""Encoder, attention, cells, decoder and the model spec."""
+"""Encoder, attention, cells, decoder, the model spec and its losses."""

@@ -4,10 +4,11 @@ comic_tpu/models/attention.py (reference ops_rnn.py:403-632).
 Keys/values are projected once per image (``precompute``); ``attend`` and
 ``attend_grouped`` are the per-token steps. On CUDA tensors inside the
 kernels' domain — add_LN alignment, softmax probability, tied projection,
-learned temperature, no alignment dropout — the steps run the hand-written
-kernels (ops.fused_attention K2 for ``attend``, ops.grouped_attention K1
-for ``attend_grouped``). Everywhere else, and always on the CPU, they run
-the torch-ops transcription of comic_tpu's jnp code below.
+learned temperature, no alignment dropout, and no input that autograd
+must differentiate — the steps run the hand-written kernels
+(ops.fused_attention K2 for ``attend``, ops.grouped_attention K1 for
+``attend_grouped``). Everywhere else (a training step, and always on the
+CPU) they run the torch-ops transcription of comic_tpu's jnp code below.
 
 Both routes round the projected query to the keys' dtype before scoring
 and the alignments to the values' dtype before the context product, as
@@ -169,10 +170,20 @@ def _probability(cfg: AttentionConfig, score: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"Invalid probability fn: {cfg.probability}")
 
 
-def _kernel_domain(cfg: AttentionConfig, memory: AttentionMemory) -> bool:
-    return (memory.keys.is_cuda and cfg.alignment == "add_LN"
+def _kernel_domain(p: Params, cfg: AttentionConfig, memory: AttentionMemory,
+                   proj_q: torch.Tensor) -> bool:
+    """True where a kernel may take the step: CUDA keys, the kernels'
+    configuration, and no input that autograd must differentiate. The
+    kernels are forward-only (their outputs carry no grad_fn), as the
+    Pallas kernels are; a training step takes the torch ops below."""
+    if not (memory.keys.is_cuda and cfg.alignment == "add_LN"
             and cfg.probability == "softmax" and cfg.fm_projection == "tied"
-            and cfg.scale and memory.key_mean is not None)
+            and cfg.scale and memory.key_mean is not None):
+        return False
+    inputs = (proj_q, memory.keys, memory.key_mean, memory.key_m2, p["v"],
+              p["ln"]["scale"], p["ln"]["bias"], p["softmax_temperature"])
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in inputs))
 
 
 def _head_sums(score: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -198,8 +209,8 @@ def attend(p: Params, cfg: AttentionConfig, query: torch.Tensor,
       (context (B, context_size) f32, alignments (B, H, L)).
     """
     dropout = alignments_keep_mask is not None and alignments_keep_prob < 1.0
-    if _kernel_domain(cfg, memory) and not dropout:
-        proj_q = dense_apply(p["query_layer"], query, dtype=dtype)
+    proj_q = dense_apply(p["query_layer"], query, dtype=dtype)
+    if not dropout and _kernel_domain(p, cfg, memory, proj_q):
         context, alignments = fused_add_ln_attention(
             proj_q, memory.keys, p["v"], p["ln"]["scale"], p["ln"]["bias"],
             p["softmax_temperature"], num_heads=cfg.num_heads)
@@ -207,8 +218,7 @@ def attend(p: Params, cfg: AttentionConfig, query: torch.Tensor,
             context = dense_apply(p["a_layer"], context, dtype=dtype)
         return context, alignments
 
-    proj_q = dense_apply(p["query_layer"], query, dtype=dtype)[:, None, :]
-    proj_q = proj_q.to(memory.keys.dtype)
+    proj_q = proj_q[:, None, :].to(memory.keys.dtype)
     if cfg.alignment == "add_LN" and memory.key_mean is not None:
         score = _add_ln_scores_fast(p, cfg, memory, proj_q)[:, 0]  # (B,H,L)
     elif cfg.alignment in ("add_LN", "add"):
@@ -258,7 +268,7 @@ def attend_grouped(p: Params, cfg: AttentionConfig, query: torch.Tensor,
     """
     b, k, _ = query.shape
     proj_q = dense_apply(p["query_layer"], query, dtype=dtype)
-    if _kernel_domain(cfg, memory):
+    if _kernel_domain(p, cfg, memory, proj_q):
         context, alignments = grouped_add_ln_attention(
             proj_q, memory.keys, memory.key_mean, memory.key_m2, p["v"],
             p["ln"]["scale"], p["ln"]["bias"], p["softmax_temperature"],

@@ -1,7 +1,7 @@
-"""The caption model's static spec and parameter tree; counterpart of the
-spec part of comic_tpu/models/captioner.py (reference model.py,
-model_base.py). Losses and the teacher-forced forward wait for the
-training slice of the port.
+"""The caption model: static spec, parameter tree, losses and the
+teacher-forced forward; counterpart of comic_tpu/models/captioner.py
+(reference model.py, model_base.py). SCST's reward-weighted forward waits
+for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ from .. import DeviceLike, resolve_device
 from ..configuration import Config
 from ..tokenization import RadixCodec, Vocabulary
 from .attention import AttentionConfig
-from .decoder import DecoderConfig, decoder_init
-from .encoders import encoder_init, get_encoder
+from .decoder import DecoderConfig, decoder_init, teacher_forced
+from .encoders import encode_images, encoder_init, get_encoder
 
 Params = Dict[str, Any]
 
@@ -129,3 +129,70 @@ def tree_to(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# --- input processing (model_base.py:501-528) ------------------------------
+
+def process_captions(captions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, T) padded ids -> (inputs, targets, mask): mask is 1 where the
+    shifted caption is not <PAD> (-1); targets are clipped at 0 so padded
+    positions index row 0 (they are masked); inputs keep the raw ids (the
+    one-hot embedding maps -1 to a zero row)."""
+    inputs = captions[:, :-1]
+    shifted = captions[:, 1:]
+    mask = torch.sign((shifted + 1).float())
+    return inputs, shifted.clamp(min=0), mask
+
+
+# --- losses (model_base.py:325-417) ----------------------------------------
+
+def sequence_loss(logits: torch.Tensor, targets: torch.Tensor,
+                  weights: torch.Tensor, average_across_batch: bool = True
+                  ) -> torch.Tensor:
+    """Weighted softmax cross-entropy (tf.contrib.seq2seq.sequence_loss):
+    with batch averaging sum(xent * w) / sum(w), else per example."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    xent = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    if average_across_batch:
+        return (xent * weights).sum() / weights.sum().clamp(min=1e-12)
+    return (xent * weights).sum(dim=1) / weights.sum(dim=1).clamp(min=1e-12)
+
+
+def attention_map_loss(alignments: torch.Tensor, scale: float,
+                       valid_steps=None) -> torch.Tensor:
+    """Doubly-stochastic attention regularizer: the mean of (1 - the sum
+    over the HEAD axis of the maps)^2, as the reference computes it
+    (model_base.py:355-365). ``alignments`` are (B, T, H, L).
+    ``valid_steps`` (int or 0-d tensor) restricts the mean to the first N
+    steps: the trainers pass the batch-max caption length, where the
+    reference's dynamic_decode stops."""
+    if scale <= 0:
+        return torch.zeros((), device=alignments.device)
+    sq = (1.0 - alignments.sum(dim=2)).square()  # (B, T, L)
+    if valid_steps is None:
+        return sq.mean() * scale
+    b, t, l = sq.shape
+    valid = torch.as_tensor(valid_steps, device=sq.device)
+    m = (torch.arange(t, device=sq.device) < valid).to(sq.dtype)
+    denom = (b * l * valid.to(sq.dtype)).clamp(min=1.0)
+    return (sq * m[None, :, None]).sum() / denom * scale
+
+
+def xe_forward(params: Params, spec: ModelSpec, images: torch.Tensor,
+               captions: torch.Tensor, *, training: bool = False,
+               generator: Optional[torch.Generator] = None,
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Teacher-forced forward -> (log-perplexity loss, aux dict with the
+    logits, alignments, mask, targets and loss). ``training`` turns on
+    dropout, drawn from ``generator``."""
+    im_embed, fmaps = encode_images(
+        params["encoder"], images, spec.cnn_name, spec.fm_endpoint,
+        legacy=spec.legacy, dtype=spec.compute_dtype)
+    inputs, targets, mask = process_captions(captions)
+    logits, alignments = teacher_forced(
+        params["decoder"], spec.decoder, inputs, im_embed, fmaps,
+        training=training, generator=generator, dtype=spec.compute_dtype)
+    log_ppl = sequence_loss(logits, targets, mask)
+    return log_ppl, {"logits": logits, "alignments": alignments,
+                     "mask": mask, "targets": targets, "log_ppl": log_ppl}

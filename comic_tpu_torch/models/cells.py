@@ -1,5 +1,5 @@
-"""Recurrent cells as step functions (inference), counterpart of
-comic_tpu/models/cells.py (reference model_base.py:606-648).
+"""Recurrent cells as step functions plus train-time dropout, counterpart
+of comic_tpu/models/cells.py (reference model_base.py:606-648).
 
 The gate matmul is one (in + hidden, 4 * hidden) product; operands are
 rounded to the compute dtype and multiplied in float32 (layers.matmul_f32).
@@ -7,7 +7,7 @@ rounded to the compute dtype and multiplied in float32 (layers.matmul_f32).
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -137,3 +137,23 @@ class Cell:
         if self.name == "GRU":
             return h
         return LSTMState(torch.zeros_like(h), h)
+
+
+def apply_dropout(x: torch.Tensor, keep_prob: float, *,
+                  keep_mask: Optional[torch.Tensor] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Inverted dropout with tf DropoutWrapper semantics: kept entries are
+    divided by ``keep_prob``. ``noise`` is a fixed multiplier (0 or
+    1/keep_prob) for variational recurrent dropout, the same at every step
+    (model_base.py:641-647); else ``keep_mask`` (bool, x's shape) says
+    what is kept, drawn from ``generator`` when not given."""
+    if keep_prob >= 1.0:
+        return x
+    if noise is not None:
+        return x * noise
+    if keep_mask is None:
+        keep_mask = torch.rand(x.shape, generator=generator,
+                               device=x.device) < keep_prob
+    return torch.where(keep_mask, x / keep_prob, x.new_zeros(()))

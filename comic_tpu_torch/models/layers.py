@@ -221,3 +221,25 @@ def merged_1x1_bn_relu(parts: Sequence[Params], x: torch.Tensor, eps: float,
           for key in ("moving_mean", "moving_variance", "beta")}
     y = torch.relu(frozen_bn(y, bn, eps))
     return list(torch.split(y, [q["weights"].shape[0] for q in parts], dim=1))
+
+
+# --- misc -----------------------------------------------------------------
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
+
+
+def l2_loss(params, decay: float) -> torch.Tensor:
+    """decay * sum_v ||v||^2 / 2 over every leaf (reference ops.py:184-190)."""
+    leaves = tree_leaves(params)
+    if not leaves or decay <= 0:
+        return torch.zeros(())
+    return decay * sum(0.5 * v.float().square().sum() for v in leaves)
+
+
+def count_params(params) -> int:
+    """Parameter count (reference ops.get_model_size, common/ops.py:62-91)."""
+    return sum(math.prod(v.shape) for v in tree_leaves(params))

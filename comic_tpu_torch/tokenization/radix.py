@@ -1,19 +1,22 @@
-"""Radix (base-N) token codec, decode side (the port's own copy of
+"""Radix (base-N) token codec (the port's own copy of
 comic_tpu.tokenization.radix).
 
 Every word id is spelled as a fixed-width sequence of base-N digits; the
-decoder's softmax is ``N + 2`` wide (digits plus GO/EOS). Serving only
-decodes, so the encode half waits for the training slice.
+decoder's softmax is ``N + 2`` wide (digits plus GO/EOS).
 
 Behavioral contract (reference semantics):
   - ``number_to_base`` — reference common/ops.py:25-40
+  - fixed-width digit encoding with GO=base, EOS=base+1, PAD=-1 —
+    reference common/inputs/manager_image_caption.py:231-262
   - digit-sequence -> word-id decode incl. truncation / out-of-vocab rules —
     reference src/infer_fn.py:36-63
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 PAD_ID = -1
 
@@ -69,6 +72,42 @@ class RadixCodec:
         self.pad_id = PAD_ID
         #: decoder softmax width: digits + GO + EOS
         self.softmax_size = base + 2
+
+    def encode_word_id(self, word_id: int) -> List[int]:
+        """word id -> fixed-width MSB-first digits, zero-padded on the
+        left."""
+        digits = number_to_base(word_id, self.base)
+        return [0] * (self.word_len - len(digits)) + digits
+
+    def build_radix_wtoi(self, wtoi: Dict[str, int]) -> Dict[str, List[int]]:
+        """Every vocab token -> its digit list: <GO> -> [base], <EOS> ->
+        [base+1], <PAD> -> [-1], words -> fixed-width digits (reference
+        manager_image_caption.py:243-256). Requires <PAD> == -1."""
+        if wtoi["<PAD>"] != PAD_ID:
+            raise ValueError("Radix codec requires <PAD> == -1.")
+        out: Dict[str, List[int]] = {}
+        for tok, idx in wtoi.items():
+            if tok == "<GO>":
+                out[tok] = [self.go_id]
+            elif tok == "<EOS>":
+                out[tok] = [self.eos_id]
+            elif tok == "<PAD>":
+                out[tok] = [self.pad_id]
+            else:
+                out[tok] = self.encode_word_id(idx)
+        return out
+
+    def encode_caption(self, tokens: Sequence[str], wtoi: Dict[str, int],
+                       radix_wtoi: Optional[Dict[str, List[int]]] = None
+                       ) -> np.ndarray:
+        """Token list (incl. <GO>/<EOS>) -> concatenated digit ids; unknown
+        tokens take <UNK>'s digits. Pass a prebuilt ``radix_wtoi`` when
+        encoding many captions (building it is O(vocab))."""
+        if radix_wtoi is None:
+            radix_wtoi = self.build_radix_wtoi(wtoi)
+        unk = radix_wtoi["<UNK>"]
+        parts = [radix_wtoi.get(t, unk) for t in tokens]
+        return np.concatenate([np.asarray(p, dtype=np.int32) for p in parts])
 
     def decode_ids(self, ids: Sequence[int]) -> List[int]:
         """Digit-id sequence -> word ids (reference infer_fn.py:50-63).

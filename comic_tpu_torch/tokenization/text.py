@@ -1,10 +1,11 @@
-"""Generated ids -> caption text (the port's own copy of
-comic_tpu.tokenization.text.ids_to_captions; reference
-``id_to_caption``, src/infer_fn.py:46-75)."""
+"""Caption ids <-> text (the port's own copy of the parts of
+comic_tpu.tokenization.text that serving and XE training use; reference
+``id_to_caption``, src/infer_fn.py:46-75, and the caption encoders of
+manager_image_caption.py:206-228,263-281,334-357)."""
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -47,3 +48,29 @@ def ids_to_captions(
     else:
         raise ValueError(f"Unknown token_type: {token_type}")
     return captions
+
+
+def encode_caption_tokens(
+    tokens: Sequence[str],
+    token_type: str,
+    vocab: Vocabulary,
+    radix_base: Optional[int] = None,
+) -> np.ndarray:
+    """Token list (already including <GO>/<EOS>) -> int32 id array.
+
+    word: direct lookup with <UNK> fallback; radix: per-word digit
+    expansion; char: interior tokens re-joined with spaces and split into
+    characters, then wrapped in GO/EOS.
+    """
+    if token_type == "word":
+        return np.asarray([vocab.id(t) for t in tokens], dtype=np.int32)
+    if token_type == "radix":
+        codec = RadixCodec(len(vocab), radix_base)
+        return codec.encode_caption(
+            tokens, vocab.wtoi, vocab.radix_map(radix_base)).astype(np.int32)
+    if token_type == "char":
+        interior = " ".join(tokens[1:-1])
+        ids = [vocab.wtoi[ch] for ch in interior]
+        return np.asarray([vocab.go_id] + ids + [vocab.eos_id],
+                          dtype=np.int32)
+    raise ValueError(f"Unknown token_type: {token_type}")

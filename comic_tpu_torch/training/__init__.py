@@ -1,1 +1,1 @@
-"""Compact checkpoints."""
+"""Checkpoints, optimizer, schedules and the XE training driver."""

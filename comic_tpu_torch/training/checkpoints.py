@@ -1,22 +1,37 @@
-"""Compact checkpoints; counterpart of the compact-file part of
-comic_tpu/training/checkpoints.py.
+"""Checkpoints; counterpart of comic_tpu/training/checkpoints.py
+(reference train_fn.py:66-70,130-132, infer.py:90-97,
+model_base.py:422-490).
 
-File contract shared with comic_tpu: ``model_compact-<step>.msgpack`` holds
-the model parameter tree (flax msgpack, read and written here by the port's
-own codec), listed in natural order; inference evaluates the last 12 when
-more than 20 exist (reference infer.py:90-97). Orbax directories and
-reference TF checkpoints are recognized on disk but their restores are not
-yet ported. Full (optimizer) checkpoints come with the training slice.
+File contract shared with comic_tpu (flax msgpack, read and written here
+by the port's own codec, tensors in comic_tpu's layout):
+  - ``model-<step>.msgpack``: the full training state {"params", "step",
+    "opt_state"}, the optimizer state in the layout flax writes for
+    comic_tpu's optax chain; the 2 most recent are kept;
+  - ``model_compact-<step>.msgpack``: the parameter tree alone; the
+    ``max_saves`` (12) most recent are kept;
+  - listed in natural order; inference evaluates the last 12 when more
+    than 20 exist;
+  - the 3-way restore: full resume / model only (minus excluded scopes) /
+    CNN only into the encoder subtree.
+Orbax directories and reference TF checkpoints are recognized on disk but
+their restores (and the Orbax saver) are not yet ported.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import re
-from typing import Any, Dict, List
+import shutil
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from .. import params as bridge
+from ..models.layers import tree_leaves
 from .msgpack_codec import packb, unpackb
+from .optimizer import _normalize_scopes, path_string
 
 Params = Dict[str, Any]
 
@@ -106,18 +121,20 @@ def load_compact(path_or_dir: str, template: Params) -> Params:
             "file with comic_tpu first.")
     with open(path, "rb") as f:
         tree = unpackb(f.read())
-    device = next(iter(_leaves(template))).device
+    device = tree_leaves(template)[0].device
     state = bridge.from_jax_tree(tree, device=device)
     _check_like(state, template)
     return state
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def _atomic_write(path: str, data: bytes) -> None:
+    """Write through a temporary name unique to this process and thread,
+    then rename: a reader never sees a partial file, and two writers never
+    share a temporary file."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
 
 
 def save_compact(directory: str, step: int, state: Params) -> str:
@@ -125,8 +142,222 @@ def save_compact(directory: str, step: int, state: Params) -> str:
     atomically; returns its path."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"{COMPACT_PREFIX}{int(step)}{_SUFFIX}")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(packb(bridge.to_jax_tree(state)))
-    os.replace(tmp, path)
+    _atomic_write(path, packb(bridge.to_jax_tree(state)))
     return path
+
+
+def _prune(directory: str, prefix: str, keep: int) -> None:
+    """Delete all but the ``keep`` most recent msgpack/orbax checkpoints of
+    ``prefix``. Reference TF checkpoints in the directory take no slot and
+    are never deleted."""
+    ckpts = [p for p in list_checkpoints(directory, prefix)
+             if os.path.exists(os.path.join(directory, p + _SUFFIX))
+             or os.path.exists(os.path.join(directory, p + _ORBAX_SUFFIX))]
+    for p in ckpts[:-keep] if keep > 0 else []:
+        for suffix in (_SUFFIX, _ORBAX_SUFFIX):
+            path = os.path.join(directory, p + suffix)
+            try:
+                if os.path.isdir(path):
+                    shutil.rmtree(path)
+                elif os.path.exists(path):
+                    os.remove(path)
+            except OSError:
+                pass
+
+
+def _write_checkpoint(directory: str, step: int, params: Params,
+                      opt_state: Optional[Params], max_saves: int
+                      ) -> Tuple[str, str]:
+    """Both files from host trees in comic_tpu's layout, then retention."""
+    os.makedirs(directory, exist_ok=True)
+    compact = os.path.join(directory, f"{COMPACT_PREFIX}{step}{_SUFFIX}")
+    _atomic_write(compact, packb(params))
+    full = os.path.join(directory, f"{FULL_PREFIX}{step}{_SUFFIX}")
+    state = {"params": params, "step": np.int64(step)}
+    if opt_state is not None:
+        state["opt_state"] = opt_state
+    _atomic_write(full, packb(state))
+    _prune(directory, COMPACT_PREFIX, max_saves)
+    _prune(directory, FULL_PREFIX, 2)
+    return full, compact
+
+
+def save_checkpoint(directory: str, step: int, params: Params,
+                    opt_state: Optional[Params] = None, *,
+                    max_saves: int = 12) -> Tuple[str, str]:
+    """Write the full and the compact checkpoint of ``params`` (the port's
+    tree) and ``opt_state`` (``Optimizer.state_dict``); returns their
+    paths."""
+    return _write_checkpoint(directory, int(step), bridge.to_jax_tree(params),
+                             opt_state, max_saves)
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer: the caller pays only for the copy of
+    the state to the host (synchronous, so the next step cannot change it
+    under the copy); encoding, file IO and retention run on a worker
+    thread. A worker's exception surfaces on the next save() or wait().
+    Call close() (or wait()) before reading the files."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue(maxsize=2)
+        self._err: Optional[BaseException] = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            job = self._q.get()
+            if job is None:
+                self._q.task_done()
+                return
+            try:
+                _write_checkpoint(**job)
+            except BaseException as e:  # surfaced on the next call
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def save(self, directory: str, step: int, params: Params,
+             opt_state: Optional[Params] = None, *,
+             max_saves: int = 12) -> None:
+        """Copy to the host now and queue the write."""
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointer.save() after close()")
+        self._raise_pending()
+        self._q.put(dict(directory=directory, step=int(step),
+                         params=bridge.to_jax_tree(params),
+                         opt_state=opt_state, max_saves=max_saves))
+
+    def wait(self) -> None:
+        self._q.join()
+        self._raise_pending()
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self.wait()
+        self._closed = True
+        self._q.put(None)
+        self._thread.join()
+
+
+def make_saver(backend: Optional[str] = "msgpack") -> AsyncCheckpointer:
+    """Training-driver saver factory (config.checkpoint_backend)."""
+    if backend == "orbax":
+        raise NotImplementedError(
+            "The Orbax checkpoint backend is not yet ported to "
+            "comic_tpu_torch; use checkpoint_backend='msgpack'.")
+    if backend in ("msgpack", None, "none"):
+        return AsyncCheckpointer()
+    raise ValueError(f"Unknown checkpoint backend: {backend!r}")
+
+
+def _refuse_unported(path: str) -> None:
+    if path.endswith(_TF_SUFFIX) or path.endswith(_ORBAX_SUFFIX):
+        raise NotImplementedError(
+            f"{path}: restoring TF-format and Orbax checkpoints is not yet "
+            "ported to comic_tpu_torch; convert it to msgpack with "
+            "comic_tpu first.")
+
+
+def load_full(path_or_dir: str) -> Dict[str, Any]:
+    """The decoded full checkpoint {"params", "step", "opt_state"} as host
+    trees in comic_tpu's layout."""
+    path = _resolve(path_or_dir, FULL_PREFIX)
+    _refuse_unported(path)
+    with open(path, "rb") as f:
+        return unpackb(f.read())
+
+
+def restore_with_excludes(params: Params, restored: Params,
+                          exclude_scopes: Optional[str]) -> Params:
+    """``restored``, but ``params``' leaves where a path matches an
+    excluded scope (reference filter_variables, regex search)."""
+    pats = [re.compile(sc) for sc in _normalize_scopes(exclude_scopes)]
+    if not pats:
+        return restored
+
+    def merge(old, new, prefix):
+        if isinstance(old, dict):
+            return {k: merge(old[k], new[k], prefix + (k,)) for k in old}
+        s = path_string(prefix)
+        return old if any(p.search(s) for p in pats) else new
+
+    return merge(params, restored, ())
+
+
+def restore_model(params: Params, checkpoint_path: Optional[str], *,
+                  resume: bool = False,
+                  exclude_scopes: Optional[str] = None,
+                  optimizer=None) -> Tuple[Params, int, str]:
+    """The reference's 3-way restore (model_base.py:422-490) into the
+    structure and device of ``params``; a resume also loads the optimizer
+    state into ``optimizer``. Returns (params, start_step, mode), mode one
+    of 'scratch' | 'resume' | 'model' | 'cnn'."""
+    if not checkpoint_path:
+        return params, 0, "scratch"
+    device = tree_leaves(params)[0].device
+
+    if resume and not exclude_scopes:
+        state = load_full(checkpoint_path)
+        restored = bridge.from_jax_tree(state["params"], device=device)
+        _check_like(restored, params)
+        if optimizer is not None and "opt_state" in state:
+            optimizer.load_state_dict(state["opt_state"], restored)
+        return restored, int(state["step"]), "resume"
+
+    resolved = None
+    try:
+        resolved = _resolve(checkpoint_path, COMPACT_PREFIX)
+    except FileNotFoundError:
+        pass
+    compact_err: Optional[BaseException] = None
+    if resolved is not None:
+        _refuse_unported(resolved)
+        try:
+            restored = load_compact(resolved, params)
+            return (restore_with_excludes(params, restored, exclude_scopes),
+                    0, "model")
+        except ValueError as e:
+            compact_err = e  # maybe a CNN-only file: the CNN branch below
+
+    # CNN only: a checkpoint holding just the encoder/cnn subtree
+    # (model_base.py:471-484)
+    path = checkpoint_path
+    try:
+        if os.path.isdir(path):
+            cands = [f for f in os.listdir(path)
+                     if f.endswith(_SUFFIX) or f.endswith(_TF_SUFFIX)]
+            if not cands:
+                raise FileNotFoundError(f"No checkpoint under {path}")
+            path = os.path.join(path, sorted(cands, key=_natural_key)[-1])
+        _refuse_unported(path)
+        if os.path.exists(path + _TF_SUFFIX):
+            _refuse_unported(path + _TF_SUFFIX)
+        with open(path, "rb") as f:
+            cnn = bridge.from_jax_tree(unpackb(f.read()), device=device)
+        _check_like(cnn, params["encoder"]["cnn"])
+    except Exception as cnn_err:
+        if compact_err is not None:
+            raise ValueError(
+                f"Checkpoint {resolved!r} failed the full-model restore "
+                f"({compact_err}) AND the CNN-only fallback ({cnn_err}). "
+                "The first error is usually the real one (config/"
+                "checkpoint mismatch).") from compact_err
+        raise
+    out = dict(params)
+    out["encoder"] = dict(params["encoder"], cnn=cnn)
+    # the reference's CNN branch also filters the excluded scopes
+    return restore_with_excludes(params, out, exclude_scopes), 0, "cnn"
+
+
+def save_cnn_checkpoint(path: str, cnn_params: Params) -> None:
+    """Write an encoder-only checkpoint (the pretrained-CNN artifact)."""
+    _atomic_write(path, packb(bridge.to_jax_tree(cnn_params)))

@@ -40,17 +40,27 @@ def _pack_uint_len(out: bytearray, n: int, fix_base: int, fix_max: int,
 
 
 def _pack_int(out: bytearray, n: int) -> None:
+    """The narrowest encoding, as msgpack's own packer (and so flax)
+    writes it: a file the port writes is byte for byte comic_tpu's."""
     if 0 <= n < 128:
         out.append(n)
     elif -32 <= n < 0:
         out.append(n & 0xFF)
-    elif 0 <= n < 1 << 64:
-        out.append(0xCF)
-        out += struct.pack(">Q", n)
-    elif -(1 << 63) <= n:
-        out.append(0xD3)
-        out += struct.pack(">q", n)
+    elif n >= 0:
+        for code, fmt, bits in ((0xCC, ">B", 8), (0xCD, ">H", 16),
+                                (0xCE, ">I", 32), (0xCF, ">Q", 64)):
+            if n < 1 << bits:
+                out.append(code)
+                out += struct.pack(fmt, n)
+                return
+        raise OverflowError(f"int {n} does not fit msgpack")
     else:
+        for code, fmt, bits in ((0xD0, ">b", 8), (0xD1, ">h", 16),
+                                (0xD2, ">i", 32), (0xD3, ">q", 64)):
+            if n >= -(1 << (bits - 1)):
+                out.append(code)
+                out += struct.pack(fmt, n)
+                return
         raise OverflowError(f"int {n} does not fit msgpack")
 
 

@@ -1,0 +1,319 @@
+"""Cross-entropy training: the train and eval steps and the stage driver;
+counterpart of comic_tpu/training/xe.py (reference train_fn.py:26-147 and
+the model_base losses).
+
+One train step: device augment of the uint8 batch, the CNN forward, the
+teacher-forced decoder, the loss stack (XE + attention-map + masked L2),
+autograd, and the optimizer's update in place. The decoder runs only to
+the batch's longest caption, where the reference's dynamic_decode stops:
+the pad steps of the bucket width would be masked out of both losses
+(comic_tpu masks them), so the losses are the same. The attention kernels
+stay off every step that needs a gradient (models/attention.py); the
+eval-perplexity pass runs under no_grad, where K2 takes the attention.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import DeviceLike, resolve_device
+from ..configuration import Config
+from ..data import captions as cap_io
+from ..data.pipeline import PAD_ID, TrainPipeline
+from ..data.preprocessing import preprocess_for
+from ..models.captioner import (
+    ModelSpec,
+    attention_map_loss,
+    build_model_spec,
+    init_params,
+    xe_forward,
+)
+from ..models.layers import count_params
+from ..params import _is_conv_kernel
+from ..tokenization import Vocabulary, build_char_vocab
+from ..utils.summaries import SummaryWriter
+from . import checkpoints as ckpt
+from .optimizer import (Optimizer, masked_l2_loss, path_string,
+                        set_trainable, tree_items)
+from .schedule import cosine_schedule, legacy_halving_schedule
+
+Params = Dict[str, Any]
+
+
+class TrainState(NamedTuple):
+    params: Params
+    optimizer: Optimizer
+    step: int
+
+
+def _trim(captions: np.ndarray) -> Tuple[np.ndarray, int]:
+    """(B, W) padded ids -> (the first n + 1 columns, n): n is the batch's
+    longest caption in decode steps, the reference's dynamic_decode
+    length (comic_tpu masks the steps beyond it, xe.py:79-84)."""
+    caps = np.asarray(captions)
+    n = int((caps[:, 1:] != PAD_ID).sum(axis=1).max())
+    return caps[:, : n + 1], n
+
+
+def _scope_norms(tree: Params, prefix: str) -> Dict[str, torch.Tensor]:
+    """Global norm of each top-level scope (the reference's per-variable
+    histograms, train_fn.py:95-106, reduced to norms as comic_tpu does)."""
+    return {f"{prefix}_norm/{k}": torch.sqrt(sum(
+        v.float().square().sum() for _, v in tree_items(sub)))
+        for k, sub in tree.items()}
+
+
+def make_train_step(spec: ModelSpec, config: Config, image_size,
+                    device: DeviceLike = None) -> Callable:
+    """The train step (state, images_u8, captions, generator) -> (state,
+    metrics of 0-d tensors). ``generator`` (on ``device``) draws the
+    augment and the dropout."""
+    device = resolve_device(device)
+    h, w = image_size
+    augment = bool(config.cnn_input_augment)
+    preprocess = preprocess_for(config.cnn_name)
+    map_scale = float(config.rnn_map_loss_scale)
+    l2_decay = float(config.l2_decay)
+    add_vars = bool(config.add_vars_summaries)
+    add_grads = bool(config.add_grad_summaries)
+
+    def train_step(state: TrainState, images_u8, captions,
+                   generator: Optional[torch.Generator] = None):
+        params, opt = state.params, state.optimizer
+        caps, steps = _trim(captions)
+        caps = torch.as_tensor(caps).to(device, non_blocking=True)
+        images = preprocess(images_u8, h, w, device, training=augment,
+                            generator=generator)
+        log_ppl, aux = xe_forward(params, spec, images, caps, training=True,
+                                  generator=generator)
+        map_loss = attention_map_loss(aux["alignments"], map_scale,
+                                      valid_steps=steps)
+        reg = masked_l2_loss(params, opt.mask, l2_decay)
+        total = log_ppl + map_loss + reg
+        total.backward()
+        metrics = {"log_ppl": log_ppl, "map_loss": map_loss, "reg": reg,
+                   "total_loss": total}
+        if add_grads:
+            metrics.update(_scope_norms(
+                {k: {path_string(p): v.grad for p, v in tree_items(sub)
+                     if v.grad is not None}
+                 for k, sub in params.items()}, "grads"))
+        opt.step(params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        temp = params["decoder"]["attention"].get("softmax_temperature")
+        if temp is not None:
+            metrics["softmax_temperature"] = temp.detach().clone()
+        if add_vars:
+            with torch.no_grad():
+                metrics.update(_scope_norms(params, "vars"))
+        return TrainState(params, opt, state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(spec: ModelSpec, config: Config, image_size,
+                   device: DeviceLike = None) -> Callable:
+    """The eval-perplexity step (params, images_u8, captions) -> mean
+    log-perplexity (0-d tensor), under no_grad: on the card its attention
+    steps are the kernel K2."""
+    device = resolve_device(device)
+    h, w = image_size
+    preprocess = preprocess_for(config.cnn_name)
+
+    @torch.no_grad()
+    def eval_step(params, images_u8, captions):
+        caps, _ = _trim(captions)
+        caps = torch.as_tensor(caps).to(device, non_blocking=True)
+        images = preprocess(images_u8, h, w, device)
+        log_ppl, _ = xe_forward(params, spec, images, caps, training=False)
+        return log_ppl
+
+    return eval_step
+
+
+def evaluate_perplexity(eval_step, params, pipeline) -> float:
+    """exp of the mean eval log-perplexity over one pass
+    (train_fn.py:320-338); the losses stay on the device until the end."""
+    losses = [eval_step(params, images, caps)
+              for images, caps in pipeline.epoch()]
+    if not losses:
+        return float("nan")
+    mean = torch.stack(losses).mean().item()
+    return float(np.exp(np.float32(mean)))
+
+
+def _write_model_size(log_path: str, subtree: Params, scope: str) -> None:
+    """model_size.txt in the reference's format (ops.get_model_size,
+    common/ops.py:62-91), byte for byte comic_tpu's: an INFO line with the
+    total, then one 'name\\r\\nshape' stanza per variable, shapes in
+    comic_tpu's layout (conv kernels HWIO)."""
+    entries = []
+    for path, leaf in tree_items(subtree):
+        shape = list(leaf.shape)
+        if _is_conv_kernel(path[-1], len(shape)):
+            shape = [shape[2], shape[3], shape[1], shape[0]]
+        entries.append((path_string(path), shape))
+    total = count_params(subtree)
+    mssg = (f"\r\nINFO: Scope `{scope}` contains {total:,d} trainable "
+            f"parameters.\r\n\r\n")
+    for name, shape in sorted(entries):
+        mssg += f"{scope}/{name}\r\n{shape}\r\n\r\n"
+    mssg += "\r\n\r\n"
+    with open(os.path.join(log_path, "model_size.txt"), "a") as f:
+        f.write(mssg)
+
+
+def _resolve_vocab(config: Config) -> Vocabulary:
+    if config.token_type == "char":
+        return build_char_vocab()
+    if config.wtoi:
+        return Vocabulary.from_str_itow(config.wtoi, config.itow)
+    v = cap_io.load_vocab(config.dataset_dir, config.dataset_file_pattern)
+    config.wtoi = v.wtoi
+    config.itow = {str(k): w for k, w in v.itow.items()}
+    config.vocab_size = len(v.itow)
+    return v
+
+
+def train_fn(config: Config, *, max_steps_override: Optional[int] = None,
+             train_pipe=None, eval_pipe=None,
+             device: DeviceLike = None) -> Dict[str, float]:
+    """The XE stage driver (decoder training and cnn_finetune) on
+    ``device`` (None: the card). ``train_pipe``/``eval_pipe`` may be
+    passed in already built (by default TrainPipelines of the config's
+    dataset, as comic_tpu builds them).
+
+    Returns the last logged metrics. Artifacts in config.log_path, as
+    comic_tpu writes them: config.pkl (+ txt), model_size.txt,
+    events.jsonl, model-*/model_compact-* checkpoints.
+    """
+    if config.get("profile_dir"):
+        raise NotImplementedError(
+            "profile_dir (the step tracer) is not yet ported to "
+            "comic_tpu_torch.")
+    device = resolve_device(device)
+    vocab = _resolve_vocab(config)
+    spec = build_model_spec(config, vocab)
+
+    own = []
+    if train_pipe is None:
+        train_pipe = TrainPipeline(config, vocab, "train")
+        own.append(train_pipe)
+    if eval_pipe is None:
+        eval_pipe = TrainPipeline(config, vocab, "valid")
+        own.append(eval_pipe)
+    try:
+        return _train(config, spec, train_pipe, eval_pipe,
+                      max_steps_override, device)
+    finally:
+        for pipe in own:
+            pipe.close()
+
+
+def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
+           max_steps_override: Optional[int], device: torch.device
+           ) -> Dict[str, float]:
+    if max_steps_override is not None:
+        config.max_step = max_steps_override
+    max_step = int(config.max_step)
+    steps_per_epoch = max(train_pipe.steps_per_epoch, 1)
+
+    params = init_params(spec, torch.Generator().manual_seed(
+        config.rand_seed), device=device)
+    if config.legacy:
+        schedule = legacy_halving_schedule(
+            config.lr_start, steps_per_epoch,
+            config.lr_reduce_every_n_epochs, lr_end=config.lr_end)
+    else:
+        schedule = cosine_schedule(config.lr_start, config.lr_end, max_step)
+    optimizer = Optimizer(
+        params, schedule, optimiser=config.optimiser,
+        adam_epsilon=config.adam_epsilon, freeze_scopes=config.freeze_scopes,
+        cnn_grad_multiplier=config.cnn_grad_multiplier,
+        clip_gradient_norm=config.clip_gradient_norm)
+    params, start_step, mode = ckpt.restore_model(
+        params, config.checkpoint_path,
+        resume=bool(config.resume_training),
+        exclude_scopes=config.checkpoint_exclude_scopes, optimizer=optimizer)
+    set_trainable(params, optimizer.mask)
+    print(f"INFO: restore mode = {mode}, start step = {start_step}")
+
+    os.makedirs(config.log_path, exist_ok=True)
+    config.save(config.log_path)
+    _write_model_size(config.log_path, params["decoder"], "decoder")
+    print(f"INFO: decoder params {count_params(params['decoder']):,d} / "
+          f"total {count_params(params):,d}")
+
+    image_size = tuple(config.cnn_input_size)
+    train_step = make_train_step(spec, config, image_size, device)
+    eval_step = make_eval_step(spec, config, image_size, device)
+    # train_steps_per_call K: comic_tpu runs K steps in one dispatch (a
+    # scan, bit-equal to K single steps) and logs/saves after the K; the
+    # port runs the K single steps and keeps that cadence
+    spc = max(int(config.get("train_steps_per_call") or 1), 1)
+
+    writer = SummaryWriter(config.log_path)
+    saver = ckpt.make_saver(config.get("checkpoint_backend", "msgpack"))
+    log_every = max(steps_per_epoch // max(config.num_logs_per_epoch, 1), 1)
+    save_every = (steps_per_epoch if steps_per_epoch <= 5000
+                  else steps_per_epoch // 2)
+    generator = torch.Generator(device=device).manual_seed(
+        config.rand_seed + 1)
+    state = TrainState(params, optimizer, start_step)
+    t_last, n_since = time.time(), 0
+    data_iter = iter(train_pipe)
+    metrics: Dict[str, torch.Tensor] = {}
+    logged_image = not bool(config.add_image_summaries)
+    try:
+        while state.step < max_step:
+            prev_step = state.step
+            for _ in range(spc if state.step + spc <= max_step else 1):
+                images, caps = next(data_iter)
+                if not logged_image:
+                    _log_input_image(writer, config, state.step, images,
+                                     device)
+                    logged_image = True
+                state, metrics = train_step(state, images, caps, generator)
+                n_since += images.shape[0]
+            step = state.step
+            if (step // log_every) != (prev_step // log_every) \
+                    or step == max_step:
+                m = {k: float(v) for k, v in metrics.items()}
+                dt = time.time() - t_last
+                m["examples_per_sec"] = n_since / max(dt, 1e-9)
+                m["lr"] = schedule(step)
+                writer.scalars(step, m)
+                print(f"step {step}/{max_step}  loss {m['total_loss']:.4f}  "
+                      f"ppl {np.exp(m['log_ppl']):.2f}  "
+                      f"{m['examples_per_sec']:.1f} ex/s")
+                t_last, n_since = time.time(), 0
+            if (step // save_every) != (prev_step // save_every) \
+                    or step == max_step:
+                saver.save(config.log_path, step, state.params,
+                           optimizer.state_dict(state.params),
+                           max_saves=config.max_saves)
+                eval_ppl = evaluate_perplexity(eval_step, state.params,
+                                               eval_pipe)
+                writer.scalars(step, {"eval_perplexity": eval_ppl})
+                print(f"step {step}: eval perplexity {eval_ppl:.3f}")
+    finally:
+        saver.close()
+        writer.close()
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _log_input_image(writer: SummaryWriter, config: Config, step: int,
+                     images: np.ndarray, device: torch.device) -> None:
+    """One eval-preprocessed input per run, scaled to [0, 255] (the
+    reference's tf.summary.image of the input batch, train_fn.py:75)."""
+    h, w = config.cnn_input_size
+    x = preprocess_for(config.cnn_name)(images[:1], h, w, device)
+    arr = x[0].permute(1, 2, 0).float().cpu().numpy()
+    lo, hi = float(arr.min()), float(arr.max())
+    arr = (arr - lo) / max(hi - lo, 1e-6) * 255.0
+    writer.image(step, "input_image", arr.astype(np.uint8))

@@ -165,3 +165,89 @@ def test_listing_matches_comic_tpu(tmp_path):
             jckpt._resolve(q, jckpt.COMPACT_PREFIX)
     with pytest.raises(FileNotFoundError):
         tckpt._resolve(os.path.join(d, "missing"), tckpt.COMPACT_PREFIX)
+
+
+# --- the training side: retention, the saver, the restore modes -------------
+
+def _scaled(tree, s):
+    return jax.tree_util.tree_map(lambda x: (x * s).astype(x.dtype), tree)
+
+
+@pytest.mark.parametrize("max_saves", [1, 3])
+def test_retention_matches_comic_tpu(jax_tree, tmp_path, max_saves):
+    """Full and compact checkpoints of steps 1..5 through the port's
+    AsyncCheckpointer and comic_tpu's save_checkpoint leave the same files
+    (2 full, ``max_saves`` compact); a reference TF checkpoint in the
+    directory takes no slot and stays."""
+    state = bridge.from_jax_tree(jax_tree, "cpu")
+    port, ref = tmp_path / "port", tmp_path / "ref"
+    for d in (port, ref):
+        d.mkdir()
+        (d / "model_compact-100.index").write_bytes(b"")
+    saver = tckpt.make_saver("msgpack")
+    for step in range(1, 6):
+        saver.save(str(port), step, state, {"0": {}}, max_saves=max_saves)
+        jckpt.save_checkpoint(str(ref), step, jax_tree, {"0": {}},
+                              max_saves=max_saves)
+    saver.close()
+    saver.close()  # idempotent
+    with pytest.raises(RuntimeError):
+        saver.save(str(port), 6, state)
+    assert sorted(os.listdir(port)) == sorted(os.listdir(ref))
+    assert "model_compact-100.index" in os.listdir(port)
+    assert len([f for f in os.listdir(port) if f.startswith("model-")]) == 2
+    for name in os.listdir(ref):
+        if name.endswith(".msgpack"):
+            with open(port / name, "rb") as a, open(ref / name, "rb") as b:
+                assert a.read() == b.read()
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tckpt.make_saver("orbax")
+
+
+def test_restore_modes_match_comic_tpu(jax_tree, tmp_path):
+    """scratch, model (with checkpoint_exclude_scopes) and cnn restores
+    give comic_tpu's trees, modes and steps."""
+    spec = _spec()
+    init_t = tcap.init_params(spec, device="cpu")
+    init_j = bridge.to_jax_tree(init_t)
+    saved = _scaled(jax_tree, 2.0)
+    d = str(tmp_path / "run")
+    jckpt.save_checkpoint(d, 4, saved)
+    cnn_file = str(tmp_path / "cnn.msgpack")
+    tckpt.save_cnn_checkpoint(
+        cnn_file, bridge.from_jax_tree(saved, "cpu")["encoder"]["cnn"])
+    cases = [(None, None), (d, None), (d, "Model/decoder/attention"),
+             (d, "decoder/cell,encoder/cnn/Mixed_5"), (cnn_file, None),
+             (cnn_file, "Conv2d_1a_7x7")]
+    for path, excl in cases:
+        got, step, mode = tckpt.restore_model(init_t, path,
+                                              exclude_scopes=excl)
+        want, _, jstep, jmode = jckpt.restore_model(init_j, path,
+                                                    exclude_scopes=excl)
+        assert (mode, step) == (jmode, jstep)
+        _assert_tree_equal(bridge.to_jax_tree(got),
+                           jax.tree_util.tree_map(np.asarray, want))
+    assert [tckpt.restore_model(init_t, p)[2] for p in (None, d, cnn_file)] \
+        == ["scratch", "model", "cnn"]
+    # an excluded scope keeps its initial values, the rest is restored
+    got, _, _ = tckpt.restore_model(init_t, d,
+                                    exclude_scopes="decoder/attention")
+    assert torch.equal(got["decoder"]["attention"]["v"],
+                       init_t["decoder"]["attention"]["v"])
+    np.testing.assert_array_equal(
+        got["decoder"]["cell"]["kernel"].numpy(),
+        saved["decoder"]["cell"]["kernel"])
+
+
+def test_restore_refuses_what_does_not_fit(jax_tree, tmp_path):
+    spec = tcap.build_model_spec(Config(**dict(SMALL, rnn_size=64)),
+                                 Vocabulary(dict(WTOI)))
+    jckpt.save_checkpoint(str(tmp_path), 2, jax_tree)
+    with pytest.raises(ValueError, match="CNN-only fallback"):
+        tckpt.restore_model(tcap.init_params(spec, device="cpu"),
+                            str(tmp_path))
+    (tmp_path / "tf").mkdir()
+    (tmp_path / "tf" / "model_compact-3.index").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tckpt.restore_model(tcap.init_params(_spec(), device="cpu"),
+                            str(tmp_path / "tf"))

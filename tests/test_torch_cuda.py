@@ -50,13 +50,14 @@ def _inputs(card, rows, beams, L, U, keys_dtype):
 # head width 30 (vector width 1, head sums through shared memory, keys
 # copied without TMA); U=1024 (two passes over U); batch 1; beam 7; the
 # main path's (25, 3, 196, 512, 8), whose f32 keys are the largest staged
-# chunk the decode loop gives the kernels; and U=4096, whose chunk fits
-# shared memory at no cluster size, so the keys are read in place
+# chunk the decode loop gives the kernels; the eval-perplexity pass's 61
+# rows (K2 at batch_size_eval); and U=4096, whose chunk fits shared memory
+# at no cluster size, so the keys are read in place
 UNSTAGED = (1, 3, 196, 4096, 8)
 SHAPES = [(2, 3, 7, 16, 4), (3, 7, 33, 96, 3), (4, 3, 5, 64, 2),
           (2, 3, 50, 512, 1), (3, 7, 33, 90, 3), (2, 3, 20, 1024, 8),
           (1, 3, 196, 512, 8), (25, 7, 196, 512, 8), (25, 3, 197, 512, 8),
-          (25, 3, 196, 512, 8), UNSTAGED]
+          (25, 3, 196, 512, 8), (61, 3, 196, 512, 8), UNSTAGED]
 
 
 @pytest.mark.parametrize("keys_dtype", [torch.float32, torch.bfloat16])
@@ -148,3 +149,99 @@ def test_attention_steps_dispatch_to_kernels(card):
     dot = cfg._replace(alignment="dot")
     tatt.attend_grouped(p, dot, q, tatt.precompute(p, dot, fm))
     assert k1.grouped_add_ln_attention.launches == n1 + 1
+
+
+def test_attention_steps_under_autograd_take_torch_ops(card):
+    """The kernels are forward-only: where an input needs a gradient the
+    decode steps take the torch ops (their outputs carry a grad_fn) and
+    launch nothing; under no_grad they launch the kernels again."""
+    cfg = tatt.AttentionConfig(num_units=16, num_heads=4, memory_channels=12)
+    g = torch.Generator().manual_seed(1)
+    p = tree_to(tatt.attention_init(g, cfg), card)
+    fm = torch.randn(2, 7, 12, generator=g).to(card)
+    q = torch.randn(2, 3, 16, generator=g).to(card)
+    for v in (p["v"], p["query_layer"]["kernel"]):
+        v.requires_grad_(True)
+    memory = tatt.precompute(p, cfg, fm, dtype=torch.bfloat16)
+    n1 = k1.grouped_add_ln_attention.launches
+    n2 = k2.fused_add_ln_attention.launches
+    ctx1, _ = tatt.attend_grouped(p, cfg, q, memory, dtype=torch.bfloat16)
+    ctx2, _ = tatt.attend(p, cfg, q[:, 0], memory, dtype=torch.bfloat16)
+    assert ctx1.grad_fn is not None and ctx2.grad_fn is not None
+    assert k1.grouped_add_ln_attention.launches == n1
+    assert k2.fused_add_ln_attention.launches == n2
+    with torch.no_grad():
+        tatt.attend_grouped(p, cfg, q, memory, dtype=torch.bfloat16)
+        tatt.attend(p, cfg, q[:, 0], memory, dtype=torch.bfloat16)
+    assert k1.grouped_add_ln_attention.launches == n1 + 1
+    assert k2.fused_add_ln_attention.launches == n2 + 1
+
+
+def test_xe_gradients_on_card_match_cpu(card):
+    """The repair of the kernels' autograd fault: at attn_keep_prob=1.0
+    (no alignment dropout, so the attention is inside the kernels' domain)
+    the gradients of xe_forward on the card equal the CPU's, float32 with
+    TF32 off, and the forward launches no kernel. Each leaf within 1e-4 of
+    its largest gradient (the same operations summed in other orders);
+    the three stem convolutions within 1e-2, since their kernel gradients
+    are sums over every image position that cancel to a thousandth of
+    their terms, which scales float32 rounding up by as much."""
+    import numpy as np
+
+    from comic_tpu_torch.configuration import Config
+    from comic_tpu_torch.models import captioner as tcap
+    from comic_tpu_torch.tokenization import Vocabulary
+    from comic_tpu_torch.training import optimizer as topt
+
+    stem = ("Conv2d_1a_7x7", "Conv2d_2b_1x1", "Conv2d_2c_3x3")
+    wtoi = {"<PAD>": -1, "a": 0, "dog": 1, "on": 2, "<UNK>": 3, "<GO>": 4,
+            "<EOS>": 5}
+    config = Config(token_type="radix", radix_base=16, rnn_size=32,
+                    rnn_word_size=16, attn_num_heads=2,
+                    compute_dtype="float32", cnn_input_size=(64, 64),
+                    attn_keep_prob=1.0, dropout_rnn_in=0.0,
+                    dropout_rnn_out=0.0)
+    spec = tcap.build_model_spec(config, Vocabulary(dict(wtoi)))
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(
+        rng.uniform(-1, 1, (2, 3, 64, 64)).astype(np.float32))
+    caps = np.full((2, 7), -1, np.int32)
+    caps[:, 0], caps[0, 1:6], caps[1, 1:4] = 16, [1, 5, 9, 2, 17], [3, 0, 17]
+    caps = torch.from_numpy(caps)
+    params = tcap.init_params(spec, generator=torch.Generator().manual_seed(2),
+                              device="cpu")
+    mask = topt.trainable_mask(params, "")
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_to(params, torch.device(dev))
+            if dev == "cpu":
+                p = topt._map_paths(lambda _, v: v.clone(), p)
+            topt.set_trainable(p, mask)
+            n1 = k1.grouped_add_ln_attention.launches
+            n2 = k2.fused_add_ln_attention.launches
+            loss, _ = tcap.xe_forward(p, spec, images.to(dev), caps.to(dev),
+                                      training=True)
+            assert k1.grouped_add_ln_attention.launches == n1
+            assert k2.fused_add_ln_attention.launches == n2
+            loss.backward()
+            grads[dev] = (loss.item(), {
+                path: v.grad.cpu() for path, v in topt.tree_items(p)
+                if v.grad is not None})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = allow
+    assert abs(grads["cuda"][0] - grads["cpu"][0]) <= 1e-5 * grads["cpu"][0]
+    got, want = grads["cuda"][1], grads["cpu"][1]
+    assert set(got) == set(want)
+    assert len(want) > 100  # the CNN's kernels and betas, the decoder
+    assert ("decoder", "attention", "softmax_temperature") in want
+    for path, w in want.items():
+        tol = 1e-2 if path[2:3] and path[2] in stem else 1e-4
+        torch.testing.assert_close(got[path], w, rtol=0,
+                                   atol=tol * w.abs().max().item(),
+                                   msg="/".join(path))

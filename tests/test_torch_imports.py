@@ -24,18 +24,47 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "comic_tpu"))
-print(len(names), bad)
+print(",".join(names), bad)
 """
+
+# the training slice's modules, each of which the walk above must import
+TRAINING_MODULES = {
+    "comic_tpu_torch.cli.train", "comic_tpu_torch.training.xe",
+    "comic_tpu_torch.training.optimizer", "comic_tpu_torch.training.schedule",
+    "comic_tpu_torch.training.checkpoints", "comic_tpu_torch.utils.summaries",
+    "comic_tpu_torch.data.pipeline", "comic_tpu_torch.data.captions",
+    "comic_tpu_torch.data.preprocessing", "comic_tpu_torch.tokenization.vocab",
+    "comic_tpu_torch.models.captioner", "comic_tpu_torch.models.decoder"}
+
+
+def _clean_env():
+    return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
 
 
 def test_port_imports_no_jax_and_no_comic_tpu():
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 20
+    names, bad = out.stdout.split(" ", 1)
+    names = set(names.split(","))
+    assert len(names) >= 27
+    assert TRAINING_MODULES <= names, TRAINING_MODULES - names
     assert bad.strip() == "[]"
+
+
+def test_training_cli_runs_without_jax():
+    """``python -m comic_tpu_torch.cli.train --help`` with JAX and
+    comic_tpu made unimportable."""
+    block = ("import sys; sys.modules.update(dict.fromkeys(['jax', 'flax', "
+             "'optax', 'comic_tpu'])); import runpy; sys.argv = ['train', "
+             "'--help']; runpy.run_module('comic_tpu_torch.cli.train', "
+             "run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", block], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--train_mode" in out.stdout and "--cnn_ckpt_path" in out.stdout
 
 
 @pytest.fixture
