@@ -29,11 +29,28 @@ Phases (any failure raises and exits non-zero):
      1e-3) from the decoder stage's directory, checked the same way;
   9. train-agree: one float32 train step (TF32 off, batch 2, nothing
      frozen, dropout and augment off) on the card and on the CPU from the
-     same parameters; loss and updated parameters must agree.
+     same parameters; loss and updated parameters must agree;
+ 10. train-scst: the training CLI's scst stage (batch 10, beam 7, lr 1e-3,
+     the CNN frozen, CIDEr-D weight 1 and BLEU-4 weight 2, bf16) through
+     comic_tpu_torch.training.scst.train_fn_scst for 20 steps from the
+     cnn_finetune stage's directory, on in-memory batches of 10 images
+     with 5 references each and an IDF cache of those references in the
+     dataset directory; K1 and K2 must launch in every rollout and 0
+     times in every train step, losses and rewards must be finite, the
+     checkpoints saved at the last step only, the CIDEr-D scorer native;
+     then the step's rollout, host scoring and train step timed apart,
+     also at the caps (both decodes without early exit; the train step on
+     hypotheses of the references' lengths), and profiled;
+ 11. scst-agree: one SCST step at batch 2, beam 7, float32, TF32 off,
+     dropout and augment off, on the card and on the CPU from the same
+     parameters and images: greedy and all-beam ids and the rewards
+     exactly equal, the loss and updated parameters within TOL_TRAIN.
 
-Phases 4 and 5 also time one steady batch and profile one more, phases 7
-and 8 profile one more train step (torch.profiler; the per-kernel tables
-go to smoke_out/profile_*.txt).
+Phase 3 holds the kernels at the serving shapes, at K2's eval-perplexity
+batch and at the SCST rollout's shapes (K1 at batch 10, beam 7; K2 at 10
+rows for the greedy baseline). Phases 4 and 5 also time one steady batch
+and profile one more, phases 7 and 8 profile one more train step
+(torch.profiler; the per-kernel tables go to smoke_out/profile_*.txt).
 
 The line before the last is one JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -66,6 +83,9 @@ B, K, L, U, H = 25, 3, 196, 512, 8
 # is K2's rows in the eval-perplexity pass), and the steps each stage takes
 TRAIN_B, EVAL_B = 32, 61
 DECODER_STEPS, CNNFT_STEPS = 20, 10
+# the SCST stage: the CLI's batch and beam, the steps the smoke takes, the
+# references per image
+SCST_B, SCST_K, SCST_STEPS, SCST_REFS = 10, 7, 20, 5
 # the decoder stage's mean XE log-perplexity over its last 3 steps must sit
 # this far (nats) below that of its first 3: about half the drop measured
 # on an H100 80GB HBM3 at 700 W (6.09 -> 5.25, 0.84 nats)
@@ -229,11 +249,16 @@ def check_kernels():
     from comic_tpu_torch.ops import grouped_attention as k1
 
     records = {}
-    # K1 and K2 at the serving batch, then K2 at the eval-perplexity batch
-    # of the training phases (one query per caption row)
-    for name, beams, rows in (("grouped_add_ln_attention", K, B),
-                              ("fused_add_ln_attention", None, B),
-                              ("fused_add_ln_attention", None, EVAL_B)):
+    # K1 and K2 at the serving batch ("main"), K2 at the eval-perplexity
+    # batch of the training phases (one query per caption row), and both at
+    # the SCST rollout's batch: K1 for the beam-7 search, K2 for the greedy
+    # baseline
+    for name, beams, rows, tag in (
+            ("grouped_add_ln_attention", K, B, "main"),
+            ("fused_add_ln_attention", None, B, "main"),
+            ("fused_add_ln_attention", None, EVAL_B, "eval_shape"),
+            ("grouped_add_ln_attention", SCST_K, SCST_B, "scst_shape"),
+            ("fused_add_ln_attention", None, SCST_B, "scst_shape")):
         worst = 0.0
         for keys_dtype in (torch.float32, torch.bfloat16):
             query, keys, mean, m2, vecs = kernel_inputs(keys_dtype, rows,
@@ -313,14 +338,17 @@ def check_kernels():
             "bound_by": "bytes" if bound_by == "bytes" else "operations",
             "library_ms": None,  # no single PyTorch call is add_LN attention
         }
-        if name in records:  # K2 at the eval batch: kept beside the main one
-            records[name]["eval_shape"] = {
-                "rows": rows, "max_abs_err": worst, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": times[bound_by],
-                "plan": plan}
-        else:
+        if tag == "main":
             records[name] = record
-        print(f"{name} R={rows}: {ms:.4f} ms on the card (plain {plain_ms:.4f} ms, "
+        else:  # another shape of the path: kept beside the main one
+            records[name][tag] = {
+                "rows": rows, "beams": beams, "max_abs_err": worst,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": times[bound_by],
+                "bound_by": record["bound_by"], "plan": plan}
+        print(f"{name} R={rows}"
+              f"{f' K={beams}' if beams else ''}: {ms:.4f} ms on the card "
+              f"({ms / times[bound_by]:.1f}x its bound; plain "
+              f"{plain_ms:.4f} ms, "
               f"bound {times[bound_by] * 1e3:.2f} us by {bound_by}: "
               f"{nbytes / 1e6:.2f} MB in {times['bytes'] * 1e3:.2f} us, "
               f"{ops / 1e6:.1f} MFLOP in "
@@ -670,6 +698,23 @@ def profile_train_step(config, vocab, train_pipe, tag):
               for name, (n, us) in top))
 
 
+def tree_clone(tree):
+    return ({k: tree_clone(v) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.clone())
+
+
+def worst_leaf_difference(got, want):
+    """-> (largest relative difference of a leaf, against its own largest
+    magnitude, and that leaf's path) over two {path: tensor} maps."""
+    worst, worst_leaf = 0.0, ""
+    for path, w in want.items():
+        rel = ((got[path] - w).abs().max() / w.abs().max().clamp(
+            min=1e-30)).item()
+        if rel > worst:
+            worst, worst_leaf = rel, "/".join(path)
+    return worst, worst_leaf
+
+
 def train_agree_phase(ckpt_state):
     """Phase train-agree: float32, TF32 off, batch 2, full width, nothing
     frozen (the cnn_finetune stage's optimizer), dropout and augment off:
@@ -700,13 +745,9 @@ def train_agree_phase(ckpt_state):
                      for _, t in caption_records("agree", 2, 0)], 42)
     kernels = (k1.grouped_add_ln_attention, k2.fused_add_ln_attention)
     out = {}
-    def clone(tree):
-        return ({k: clone(v) for k, v in tree.items()}
-                if isinstance(tree, dict) else tree.clone())
-
     for dev in ("cuda", "cpu"):
         # a copy: the step updates the parameters in place
-        params = tree_to(clone(ckpt_state), torch.device(dev))
+        params = tree_to(tree_clone(ckpt_state), torch.device(dev))
         opt = Optimizer(params, lambda n: 1e-3, freeze_scopes="")
         set_trainable(params, opt.mask)
         step = make_train_step(spec, config, (224, 224), device=dev)
@@ -717,13 +758,7 @@ def train_agree_phase(ckpt_state):
         out[dev] = (metrics["total_loss"].item(),
                     {p: v.detach().cpu() for p, v in tree_items(state.params)})
     loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    worst, worst_leaf = 0.0, ""
-    for path, want in out["cpu"][1].items():
-        got = out["cuda"][1][path]
-        rel = ((got - want).abs().max() / want.abs().max().clamp(
-            min=1e-30)).item()
-        if rel > worst:
-            worst, worst_leaf = rel, "/".join(path)
+    worst, worst_leaf = worst_leaf_difference(out["cuda"][1], out["cpu"][1])
     print(f"train-agree (float32, TF32 off, batch 2, one step, nothing "
           f"frozen): loss card {out['cuda'][0]:.6f} vs CPU "
           f"{out['cpu'][0]:.6f}, relative difference {loss_rel:.2e} (tol "
@@ -732,6 +767,359 @@ def train_agree_phase(ckpt_state):
     if not (loss_rel <= TOL_TRAIN and worst <= TOL_TRAIN
             and np.isfinite(out["cuda"][0])):
         raise AssertionError("the card's train step disagrees with the CPU's")
+
+
+def scst_records(n_images):
+    """n_images SCST records (image path, SCST_REFS reference strings of
+    8-20 words of the smoke vocabulary)."""
+    caps = caption_records("scst", n_images * SCST_REFS, 0)
+    return [(f"images/COCO_scst_{i:012d}.jpg",
+             [" ".join(toks[1:-1]) for _, toks in
+              caps[i * SCST_REFS: (i + 1) * SCST_REFS]])
+            for i in range(n_images)]
+
+
+class ScstProbe:
+    """Records what train_fn_scst's building blocks do, call by call: the
+    kernels' launches in each rollout and each train step, each train
+    step's metrics and end time, the rewards and scores of each scored
+    batch and the scorer's CIDEr-D implementation. train_fn_scst looks the blocks up as
+    attributes of comic_tpu_torch.training.scst when it runs, so the probe
+    wraps those attributes for the length of a ``with`` block."""
+
+    BLOCKS = ("make_rollout", "make_scst_train_step", "host_score_shard")
+
+    def __init__(self, kernels):
+        from comic_tpu_torch.training import scst
+
+        self.scst, self.kernels = scst, kernels
+        self.rollouts, self.steps, self.metrics, self.ends = [], [], [], []
+        self.rewards, self.scores, self.impls = [], [], set()
+
+    def _counted(self, fn, into):
+        def call(*args, **kwargs):
+            before = [k.launches for k in self.kernels]
+            out = fn(*args, **kwargs)
+            into.append([k.launches - b for k, b in zip(self.kernels, before)])
+            return out
+        return call
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.scst, n) for n in self.BLOCKS}
+        make_rollout, make_step, score = (self.saved[n] for n in self.BLOCKS)
+
+        def probed_rollout(*args, **kwargs):
+            return self._counted(make_rollout(*args, **kwargs), self.rollouts)
+
+        def probed_step(*args, **kwargs):
+            step = self._counted(make_step(*args, **kwargs), self.steps)
+
+            def call(*a, **kw):
+                state, metrics = step(*a, **kw)
+                self.metrics.append({k: float(v) for k, v in metrics.items()})
+                self.ends.append(time.perf_counter())
+                return state, metrics
+            return call
+
+        def probed_score(greedy_ids, beam_ids, refs, scorer, *args):
+            self.impls.add(scorer.ciderd_impl)
+            out = score(greedy_ids, beam_ids, refs, scorer, *args)
+            self.rewards.append(out[1])
+            self.scores.append(out[2])
+            return out
+
+        self.scst.make_rollout = probed_rollout
+        self.scst.make_scst_train_step = probed_step
+        self.scst.host_score_shard = probed_score
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.scst, name, fn)
+
+
+def train_scst_phase(kernels):
+    """Phase train-scst: the training CLI's scst stage (its overrides:
+    batch 10, beam 7, lr 1e-3, the CNN frozen, CIDEr-D 1 and BLEU-4 2) from
+    the cnn_finetune stage's directory, through train_fn_scst for
+    SCST_STEPS steps on in-memory batches, with an IDF cache of the
+    references in the dataset directory. K1 and K2 must launch in every
+    rollout and never in a train step; losses and rewards finite; the
+    checkpoints at the last step only; the CIDEr-D scorer native. Then the
+    step's three parts timed apart from the saved weights, also at the
+    caps, and one rollout and one train step profiled. -> launches per
+    kernel in the train_fn_scst run"""
+    import numpy as np
+    import torch
+
+    from comic_tpu_torch.cli.train import stage_config
+    from comic_tpu_torch.data.pipeline import ScstPipeline
+    from comic_tpu_torch.evaluation import (CaptionScorer, build_idf_cache,
+                                            save_idf_cache)
+    from comic_tpu_torch.models.captioner import build_model_spec, init_params
+    from comic_tpu_torch.tokenization import (Vocabulary,
+                                              caption_strings_to_batched_ids)
+    from comic_tpu_torch.training import scst
+    from comic_tpu_torch.training.checkpoints import load_compact
+    from comic_tpu_torch.training.optimizer import Optimizer, set_trainable
+    from comic_tpu_torch.training.xe import TrainState
+
+    tag = "train-scst"
+    data_dir = os.path.join(OUT, "train", "data")
+    stage_fn, config = stage_config([
+        "--train_mode", "scst", "--name", "smoke",
+        "--log_root", os.path.join(OUT, "train"), "--dataset_dir", data_dir])
+    if stage_fn is not scst.train_fn_scst or (
+            config.batch_size_train, config.scst_beam_size) != (SCST_B,
+                                                                SCST_K):
+        raise AssertionError(f"{tag}: the CLI's scst stage is {stage_fn} at "
+                             f"batch {config.batch_size_train}, beam "
+                             f"{config.scst_beam_size}")
+    vocab_cfg = smoke_config(1, B, "bfloat16")
+    config.update(wtoi=vocab_cfg.wtoi, itow=vocab_cfg.itow,
+                  vocab_size=len(vocab_cfg.itow))
+    vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+    # one batch more than the steps: an epoch, the checkpoint cadence, then
+    # ends after the last step, so only the closing save writes
+    records = scst_records(SCST_B * (SCST_STEPS + 1))
+    idf_path = os.path.join(
+        data_dir, "captions",
+        config.dataset_file_pattern.format("scst-words") + ".p")
+    os.makedirs(os.path.dirname(idf_path), exist_ok=True)
+    save_idf_cache(idf_path, build_idf_cache([r for _, r in records]))
+    if scst._scst_idf_path(config) != idf_path:
+        raise AssertionError(f"{tag}: train_fn_scst does not find {idf_path}")
+    pipe = ScstPipeline(config, vocab, records=records, loader=MemoryImages())
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with ScstProbe(kernels) as probe:
+        stage_fn(config, max_steps_override=SCST_STEPS, pipe=pipe)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = [k.launches for k in kernels]
+    names = [k.__name__ for k in kernels]
+
+    if not (len(probe.rollouts) == len(probe.steps) == len(probe.rewards)
+            == SCST_STEPS):
+        raise AssertionError(f"{tag}: {len(probe.rollouts)} rollouts, "
+                             f"{len(probe.steps)} train steps, expected "
+                             f"{SCST_STEPS} each")
+    if not all(all(n > 0 for n in r) for r in probe.rollouts):
+        raise AssertionError(f"{tag}: a rollout did not launch both kernels: "
+                             f"{probe.rollouts}")
+    if any(any(s) for s in probe.steps):
+        raise AssertionError(f"{tag}: kernels launched in a train step: "
+                             f"{probe.steps}")
+    if launches != [sum(r[i] for r in probe.rollouts)
+                    for i in range(len(kernels))]:
+        raise AssertionError(f"{tag}: launches outside the rollouts: "
+                             f"{launches} in all, {probe.rollouts}")
+    rewards = np.concatenate(probe.rewards)
+    losses = [m["total_loss"] for m in probe.metrics]
+    if not (np.isfinite(rewards).all() and np.isfinite(
+            [v for m in probe.metrics for v in m.values()]).all()):
+        raise AssertionError(f"{tag}: non-finite losses {losses} or rewards")
+    if rewards.shape != (SCST_STEPS * SCST_B * SCST_K,):
+        raise AssertionError(f"{tag}: rewards of shape {rewards.shape}")
+    if probe.impls != {"native"}:
+        raise AssertionError(f"{tag}: CIDEr-D ran as {probe.impls}, not "
+                             "the native scorer")
+    saved = sorted(f for f in os.listdir(config.log_path)
+                   if f.endswith(".msgpack"))
+    if saved != [f"model-{SCST_STEPS}.msgpack",
+                 f"model_compact-{SCST_STEPS}.msgpack"]:
+        raise AssertionError(f"{tag}: checkpoints {saved}")
+    # a step's time: from the end of one train step to the end of the next
+    # (the next rollout, the scoring and the train step); steps 4 on
+    step_ms = [(b - a) * 1e3 for a, b in zip(probe.ends[2:], probe.ends[3:])]
+    med = statistics.median(step_ms)
+    per_rollout = {n: sorted({r[i] for r in probe.rollouts})
+                   for i, n in enumerate(names)}
+    scores = [m["score_sample"] for m in probe.scores]
+    print(f"{tag}: {SCST_STEPS} steps of {SCST_B} images x beam {SCST_K} in "
+          f"{wall:.2f} s through train_fn_scst (restore and save included); "
+          f"steady steps {med:.2f} ms median ({SCST_B / med * 1e3:.1f} "
+          f"images/s; {min(step_ms):.2f}-{max(step_ms):.2f} ms); peak memory "
+          f"{peak_gb:.2f} GiB; mean reward {rewards.mean():.6f} "
+          f"({int((rewards != 0).sum())} of {rewards.size} nonzero), mean "
+          f"sample score first step {scores[0]:.6f}, last {scores[-1]:.6f}; "
+          f"total loss first {losses[0]:.6f}, last {losses[-1]:.6f}; CIDEr-D "
+          f"{probe.impls.pop()}; launches per rollout {per_rollout}, in the "
+          f"train steps 0")
+
+    # the three parts of a step, each closed by a synchronize, from the
+    # saved weights on the run's first batch
+    spec = build_model_spec(config, vocab)
+    params = load_compact(config.log_path, init_params(spec, device="cuda"))
+    opt = Optimizer(params, lambda n: float(config.lr_end),
+                    adam_epsilon=config.adam_epsilon,
+                    freeze_scopes=config.freeze_scopes)
+    set_trainable(params, opt.mask)
+    rollout = scst.make_rollout(spec, config, vocab, "cuda")
+    train_step = scst.make_scst_train_step(spec, config, "cuda")
+    scorer = CaptionScorer(idf_path, {
+        "ciderD": float(config.scst_weight_ciderD),
+        "bleu": list(config.scst_weight_bleu)})
+    width = scst.hypo_width(config, vocab)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images = MemoryImages().load([p for p, _ in records[:SCST_B]])
+    refs = [r for _, r in records[:SCST_B]]
+    state = [TrainState(params, opt, 0)]
+
+    def timed(fn, reps=7):
+        """-> (fn's last result, median ms of the calls after the first 2)"""
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return res, statistics.median(ms[2:])
+
+    def one_step(hypo_ids, step_rewards):
+        state[0], _ = train_step(state[0], out[2], out[3], hypo_ids,
+                                 step_rewards, gen)
+
+    out, roll_ms = timed(lambda: rollout(params, images, gen))
+    (hypo, rew, _), score_ms = timed(lambda: scst.host_score_shard(
+        out[0], out[1], refs, scorer, config, vocab, width))
+    _, step_ms = timed(lambda: one_step(hypo, rew))
+    # the same parts at the caps, as for weights whose captions run longer
+    # than these: both decodes without early exit (40 radix steps each; the
+    # ids are the same), and the train step on 70 hypotheses of the
+    # references' lengths (8-20 words, up to 42 tokens)
+    decodes = {n: getattr(scst, n) for n in ("greedy_or_sample_from_memory",
+                                             "beam_search_from_memory")}
+    before = [k.launches for k in kernels]
+    try:
+        for n, fn in decodes.items():
+            setattr(scst, n, lambda *a, fn=fn, **kw: fn(
+                *a, **dict(kw, early_exit=False)))
+        _, cap_roll_ms = timed(lambda: rollout(params, images, gen))
+    finally:
+        for n, fn in decodes.items():
+            setattr(scst, n, fn)
+    cap_launches = [(k.launches - b) // 7 for k, b in zip(kernels, before)]
+    long_hypo = caption_strings_to_batched_ids(
+        [refs[i][k % SCST_REFS] for i in range(SCST_B) for k in range(SCST_K)],
+        "radix", vocab, config.radix_base)
+    long_rew = np.random.default_rng(SEED).normal(
+        size=SCST_B * SCST_K).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    _, cap_step_ms = timed(lambda: one_step(long_hypo, long_rew))
+    cap_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag} split (each part alone, median of 5 calls after 2, closed "
+          f"by a synchronize): rollout {roll_ms:.2f} ms, host scoring "
+          f"{score_ms:.2f} ms, train step {step_ms:.2f} ms (hypotheses of up "
+          f"to {int((hypo[:, 1:] != -1).sum(1).max())} tokens), sum "
+          f"{roll_ms + score_ms + step_ms:.2f} ms; at the caps: rollout "
+          f"{cap_roll_ms:.2f} ms ({dict(zip(names, cap_launches))} launches "
+          f"a rollout), train step {cap_step_ms:.2f} ms on hypotheses of up "
+          f"to {long_hypo.shape[1] - 1} tokens (peak memory "
+          f"{cap_peak_gb:.2f} GiB)")
+
+    for part, fn in (("rollout", lambda *_: rollout(params, images, gen)),
+                     ("step", lambda *_: one_step(hypo, rew))):
+        busy_ms, wall_ms, top = profile_serve(fn, None, None,
+                                              f"{tag}-{part}")
+        if not top:
+            print(f"{tag} profiled {part}: the profiler recorded no device "
+                  "time")
+            continue
+        print(f"{tag} profiled {part}: device busy {busy_ms:.2f} ms of "
+              f"{wall_ms:.2f} ms wall ({busy_ms / wall_ms:.1%}; the profiler "
+              f"adds host time); top kernels: " + "; ".join(
+                  f"{name[:48]} {n}x {us / 1e3:.2f} ms"
+                  for name, (n, us) in top))
+    pipe.close()
+    return launches
+
+
+def scst_agree_phase(ckpt_state):
+    """Phase scst-agree: one SCST step at batch 2, beam 7, full width,
+    float32, TF32 off, dropout and augment off, the CNN frozen, on the card
+    and on the CPU from the same parameters and images. The references of
+    each image are two of its beam hypotheses on the CPU and one unrelated
+    caption, so the rewards spread both ways. Greedy and all-beam ids and
+    the rewards must be equal, the loss and every updated leaf within
+    TOL_TRAIN relative; on the card K1 and K2 launch in the rollout and
+    not in the train step."""
+    import numpy as np
+    import torch
+
+    from comic_tpu_torch.evaluation import CaptionScorer
+    from comic_tpu_torch.models.captioner import build_model_spec, tree_to
+    from comic_tpu_torch.ops import fused_attention as k2
+    from comic_tpu_torch.ops import grouped_attention as k1
+    from comic_tpu_torch.tokenization import Vocabulary, ids_to_captions
+    from comic_tpu_torch.training import scst
+    from comic_tpu_torch.training.optimizer import (Optimizer, set_trainable,
+                                                    tree_items)
+    from comic_tpu_torch.training.xe import TrainState
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = smoke_config(1, 2, "float32")
+    config.update(dropout_rnn_in=0.0, dropout_rnn_out=0.0, attn_keep_prob=1.0,
+                  cnn_input_augment=False, freeze_scopes="encoder/cnn",
+                  batch_size_train=2, scst_beam_size=SCST_K)
+    vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+    spec = build_model_spec(config, vocab)
+    width = scst.hypo_width(config, vocab)
+    images = image_batches(1, 2)[0][0]
+    kernels = (k1.grouped_add_ln_attention, k2.fused_add_ln_attention)
+    scorer = CaptionScorer(None, {"ciderD": 1.0, "bleu": [0.0, 0.0, 0.0, 2.0]})
+    refs, out = None, {}
+    for dev in ("cpu", "cuda"):  # the CPU's hypotheses make the references
+        params = tree_to(tree_clone(ckpt_state), torch.device(dev))
+        opt = Optimizer(params, lambda n: 1e-3, freeze_scopes="encoder/cnn")
+        set_trainable(params, opt.mask)
+        before = [k.launches for k in kernels]
+        greedy, beams, im_embed, fmaps = scst.make_rollout(
+            spec, config, vocab, dev)(params, images)
+        rolled = [k.launches - b for k, b in zip(kernels, before)]
+        if refs is None:
+            caps = ids_to_captions(beams.reshape(-1, beams.shape[-1]).numpy(),
+                                   "radix", vocab, 256)
+            other = scst_records(1)[0][1][0]
+            refs = [[caps[1 * 2 + i], caps[4 * 2 + i], other]
+                    for i in range(2)]
+        hypo, rewards, _ = scst.host_score_shard(greedy, beams, refs, scorer,
+                                                 config, vocab, width)
+        before = [k.launches for k in kernels]
+        state, metrics = scst.make_scst_train_step(spec, config, dev)(
+            TrainState(params, opt, 0), im_embed, fmaps, hypo, rewards)
+        stepped = [k.launches - b for k, b in zip(kernels, before)]
+        if dev == "cuda" and not (all(rolled) and not any(stepped)):
+            raise AssertionError(f"scst-agree: launches in the rollout "
+                                 f"{rolled}, in the train step {stepped}")
+        out[dev] = (greedy.cpu(), beams.cpu(), rewards,
+                    metrics["total_loss"].item(),
+                    {p: v.detach().cpu() for p, v in tree_items(state.params)})
+    (g_gpu, b_gpu, r_gpu, l_gpu, p_gpu), (g_cpu, b_cpu, r_cpu, l_cpu, p_cpu) \
+        = out["cuda"], out["cpu"]
+    ids_equal = torch.equal(g_gpu, g_cpu) and torch.equal(b_gpu, b_cpu)
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst, worst_leaf = worst_leaf_difference(p_gpu, p_cpu)
+    print(f"scst-agree (float32, TF32 off, batch 2, beam {SCST_K}, one "
+          f"step): greedy and all-beam ids {'equal' if ids_equal else 'DIFFER'}"
+          f" ({tuple(b_cpu.shape)}); rewards {np.array2string(r_cpu, precision=4)}"
+          f" {'equal' if np.array_equal(r_gpu, r_cpu) else 'DIFFER'}; loss "
+          f"card {l_gpu:.6f} vs CPU {l_cpu:.6f}, relative difference "
+          f"{loss_rel:.2e} (tol {TOL_TRAIN:.0e}); largest relative "
+          f"difference of the updated parameters {worst:.2e} at {worst_leaf}"
+          f" (tol {TOL_TRAIN:.0e})")
+    if not (ids_equal and np.array_equal(r_gpu, r_cpu)):
+        raise AssertionError("scst-agree: the card's rollout or rewards "
+                             "differ from the CPU's")
+    if not (np.abs(r_cpu).max() > 0 and loss_rel <= TOL_TRAIN
+            and worst <= TOL_TRAIN and np.isfinite(l_gpu)):
+        raise AssertionError("scst-agree: the card's SCST step disagrees "
+                             "with the CPU's")
 
 
 def main():
@@ -795,6 +1183,13 @@ def main():
     for i, k in enumerate(kernels):
         records[k.__name__]["launches"] += dec_eval[i] + ft_eval[i]
     train_agree_phase(state)
+
+    # SCST from the cnn_finetune stage's directory
+    scst_launches = train_scst_phase(kernels)
+    for i, k in enumerate(kernels):
+        records[k.__name__]["launches"] += scst_launches[i]
+        records[k.__name__]["scst_shape"]["launches"] = scst_launches[i]
+    scst_agree_phase(state)
 
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))

@@ -8,7 +8,9 @@ overrides (:178-200), per-run RNG seeds (:202-207), the experiment-dir
 naming ``{token}_{align}_{prob}_h{heads}_{proj}_{name}_run_{NN}``
 (:241-253) and the stage chain: ``decoder`` trains from a pretrained CNN
 with the CNN frozen; ``cnn_finetune`` restores the decoder run (lr 1e-3,
-10 epochs, nothing frozen). ``scst`` (the third stage) is not yet ported.
+10 epochs, nothing frozen); ``scst`` restores the cnn_finetune run (batch
+10, beam ``--scst_beam_size``, lr 1e-3, 10 epochs, the CNN frozen) into
+``{name}_cnnFT_SCST_beam_{K}_CrD_{w}_B1_{b1}_B4_{b4}_run_{NN}``.
 ``--cnn_ckpt_path`` points at a converted encoder checkpoint (msgpack);
 without one the CNN trains from random init, with a warning. Training runs
 on the CUDA card.
@@ -22,6 +24,7 @@ import traceback
 from typing import Callable, Tuple
 
 from ..configuration import RUN_SEEDS, Config, load_config
+from ..training.scst import train_fn_scst
 from ..training.xe import train_fn
 
 pjoin = os.path.join
@@ -159,6 +162,7 @@ def resolve_stage(args: argparse.Namespace) -> dict:
             print("WARNING: no pretrained CNN checkpoint; the encoder will "
                   "train from random init (expect lower CIDEr).")
         log_path = dec_dir
+        stage_fn = train_fn
     elif args.train_mode == "cnn_finetune":
         if args.legacy:
             raise NotImplementedError
@@ -170,15 +174,31 @@ def resolve_stage(args: argparse.Namespace) -> dict:
         args.freeze_scopes = ""
         args.checkpoint_path = dec_dir
         log_path = cnnft_dir
+        stage_fn = train_fn
     elif args.train_mode == "scst":
-        raise NotImplementedError(
-            "The SCST stage is not yet ported to comic_tpu_torch.")
+        if args.legacy:
+            raise NotImplementedError
+        if not os.path.exists(cnnft_dir):
+            raise ValueError(
+                f"CNN finetune log path not found: {cnnft_dir}")
+        wb = [float(w) for w in str(args.scst_weight_bleu).split(",")]
+        args.scst_weight_bleu = wb
+        args.batch_size_train = 10
+        args.lr_start = 1e-3
+        args.max_epoch = 10
+        args.freeze_scopes = "encoder/cnn"
+        args.checkpoint_path = cnnft_dir
+        scst = (f"beam_{args.scst_beam_size}_CrD_{args.scst_weight_ciderD}"
+                f"_B1_{wb[0]}_B4_{wb[-1]}")
+        log_path = pjoin(log_root,
+                         f"{name}_cnnFT_SCST_{scst}_run_{args.run:02d}")
+        stage_fn = train_fn_scst
     else:
         raise ValueError(args.train_mode)
 
     return {"log_path": log_path, "save_path": pjoin(log_path, "model"),
             "resume_training": os.path.exists(log_path),
-            "stage_fn": train_fn}
+            "stage_fn": stage_fn}
 
 
 def try_to_train(stage_fn, config: Config, try_block: bool = True):

@@ -1,6 +1,6 @@
-"""Input pipelines; counterpart of TrainPipeline, InferencePipeline,
-_ImageLoaderPool and _prefetch in comic_tpu/data/pipeline.py (reference
-manager_image_caption.py:27-509).
+"""Input pipelines; counterpart of TrainPipeline, ScstPipeline,
+InferencePipeline, _ImageLoaderPool and _prefetch in
+comic_tpu/data/pipeline.py (reference manager_image_caption.py:27-509).
 
 A thread pool decodes and resizes images on the host into fixed 256x256
 uint8 batches, and a bounded queue prefetches batches ahead of the device.
@@ -198,8 +198,9 @@ def _refuse_multiprocess() -> None:
             and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError(
-            "TrainPipeline under a multi-process torch.distributed job is "
-            "not yet ported to comic_tpu_torch — train in one process.")
+            "Training pipelines under a multi-process torch.distributed "
+            "job are not yet ported to comic_tpu_torch — train in one "
+            "process.")
 
 
 class TrainPipeline:
@@ -321,6 +322,70 @@ class TrainPipeline:
                         buckets[b] = []
 
         return _prefetch(gen(), 4)
+
+    def close(self):
+        if hasattr(self.loader, "close"):
+            self.loader.close()
+
+
+class ScstPipeline:
+    """SCST batches: (images_u8, list of per-image reference strings),
+    comic_tpu's ScstPipeline. Records are grouped by image
+    (``captions.group_by_image``), drawn in comic_tpu's order from
+    ``random.Random(seed)``, not bucketed; each epoch drops its remainder
+    (manager_image_caption.py:360-474). Sets the config's
+    ``split_sizes['train']`` and ``max_step``.
+
+    ``records`` ((path, reference strings) per image) overrides the train
+    caption file; ``loader`` overrides the image files, as in
+    TrainPipeline.
+    """
+
+    def __init__(self, config: Config, vocab: Vocabulary,
+                 records: Optional[List[Tuple[str, List[str]]]] = None,
+                 num_workers: int = 8, seed: Optional[int] = None,
+                 loader=None):
+        _refuse_multiprocess()
+        self.config = config
+        self.vocab = vocab
+        if records is None:
+            records = cap_io.group_by_image(cap_io.read_caption_file(
+                cap_io.caption_file_path(config.dataset_dir,
+                                         config.dataset_file_pattern,
+                                         "train")))
+        self.records = records
+        self.batch_size = config.batch_size_train
+        if loader is None:
+            _check_square_resize(config)
+            loader = _ImageLoaderPool(
+                num_workers, tf1_exact=bool(config.get("host_resize_tf1")))
+        self.loader = loader
+        self.rng = random.Random(
+            seed if seed is not None else config.rand_seed)
+        if config.split_sizes is None:
+            config.split_sizes = {}
+        config.split_sizes["train"] = len(records)
+        config.max_step = int(
+            len(records) / self.batch_size * config.max_epoch)
+
+    def epoch(self, prefetch_depth: int = 4):
+        order = list(range(len(self.records)))
+        self.rng.shuffle(order)
+
+        def gen():
+            for lo in range(0, len(order) - self.batch_size + 1,
+                            self.batch_size):
+                idxs = order[lo: lo + self.batch_size]
+                paths = [cap_io.pjoin(self.config.dataset_dir,
+                                      self.records[i][0]) for i in idxs]
+                refs = [self.records[i][1] for i in idxs]
+                yield self.loader.load(paths), refs
+
+        return _prefetch(gen(), prefetch_depth)
+
+    def __iter__(self):
+        while True:
+            yield from self.epoch()
 
     def close(self):
         if hasattr(self.loader, "close"):

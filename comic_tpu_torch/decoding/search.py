@@ -1,6 +1,6 @@
-"""Caption decoding on the device: greedy and beam search. Counterpart of
-comic_tpu/decoding/search.py (reference ops_rnn.py:49-243 and contrib's
-BeamSearchDecoder).
+"""Caption decoding on the device: greedy (or sampled) and beam search.
+Counterpart of comic_tpu/decoding/search.py (reference ops_rnn.py:49-243
+and contrib's BeamSearchDecoder).
 
 The loops are eager Python over fixed-shape hypothesis state; batch x beam
 is folded into one leading axis, the attention memory stays per image
@@ -27,7 +27,7 @@ does anyway) and write EOS/PAD, so the outputs equal a test at every step.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,22 +73,40 @@ def _exit_now(t: int, finished: torch.Tensor) -> bool:
 
 def greedy_or_sample(
     params: Params, spec: ModelSpec, images: torch.Tensor, *,
-    max_steps: int, collect_alignments: bool = True,
+    max_steps: int, sample: bool = False,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None, collect_alignments: bool = True,
     early_exit: bool = False,
 ) -> DecodeOutput:
-    """Greedy argmax decode (sampling comes with the SCST slice)."""
+    """Greedy argmax decode, or multinomial sampling when ``sample``."""
     im_embed, memory = _prepare_memory(params, spec, images)
     return greedy_or_sample_from_memory(
         params["decoder"], spec, im_embed, memory, max_steps=max_steps,
+        sample=sample, generator=generator, noise=noise,
         collect_alignments=collect_alignments, early_exit=early_exit)
+
+
+def _gumbel(shape, generator: Optional[torch.Generator],
+            device: torch.device) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)), u uniform in [tiny, 1), as
+    jax.random.gumbel draws it."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 def greedy_or_sample_from_memory(
     dec_params: Params, spec: ModelSpec, im_embed: torch.Tensor,
-    memory: AttentionMemory, *, max_steps: int,
-    collect_alignments: bool = True, early_exit: bool = False,
+    memory: AttentionMemory, *, max_steps: int, sample: bool = False,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None, collect_alignments: bool = True,
+    early_exit: bool = False,
 ) -> DecodeOutput:
-    """Greedy search over precomputed encoder outputs."""
+    """Greedy search over precomputed encoder outputs, or with ``sample``
+    a draw from the softmax at every step: argmax(logp + Gumbel noise),
+    the draw jax.random.categorical makes. The noise of step t is
+    ``noise[t]`` ((max_steps, B, V), e.g. comic_tpu's own draws in a
+    test), else drawn from ``generator`` on the decode's device."""
     dcfg = spec.decoder
     dtype = spec.compute_dtype
     device = im_embed.device
@@ -112,7 +130,13 @@ def greedy_or_sample_from_memory(
         logits, align, dec_state = decoder_step(
             dec_params, dcfg, wv, dec_state, memory, dtype=dtype)
         logp = torch.log_softmax(logits.float(), dim=-1)
-        nxt = torch.argmax(logp, dim=-1)
+        if not sample:
+            nxt = torch.argmax(logp, dim=-1)
+        elif noise is not None:
+            nxt = torch.argmax(logp + noise[t].to(device), dim=-1)
+        else:
+            nxt = torch.argmax(logp + _gumbel(logp.shape, generator, device),
+                               dim=-1)
         tok_logp = logp.gather(1, nxt[:, None])[:, 0]
         ids[t] = torch.where(finished, -1, nxt)  # finished rows emit PAD
         log_prob = log_prob + torch.where(finished, 0.0, tok_logp)

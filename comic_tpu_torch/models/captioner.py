@@ -1,7 +1,6 @@
 """The caption model: static spec, parameter tree, losses and the
-teacher-forced forward; counterpart of comic_tpu/models/captioner.py
-(reference model.py, model_base.py). SCST's reward-weighted forward waits
-for a later slice of the port.
+teacher-forced XE and SCST forwards; counterpart of
+comic_tpu/models/captioner.py (reference model.py, model_base.py).
 """
 
 from __future__ import annotations
@@ -196,3 +195,25 @@ def xe_forward(params: Params, spec: ModelSpec, images: torch.Tensor,
     log_ppl = sequence_loss(logits, targets, mask)
     return log_ppl, {"logits": logits, "alignments": alignments,
                      "mask": mask, "targets": targets, "log_ppl": log_ppl}
+
+
+def scst_forward(params: Params, spec: ModelSpec, images: torch.Tensor,
+                 captions: torch.Tensor, rewards: torch.Tensor, *,
+                 training: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """REINFORCE as reward-weighted XE on sampled captions
+    (model_base.py:342-347): the mean over examples of the per-example
+    sequence loss x reward -> (loss, aux dict with the alignments, mask
+    and loss)."""
+    im_embed, fmaps = encode_images(
+        params["encoder"], images, spec.cnn_name, spec.fm_endpoint,
+        legacy=spec.legacy, dtype=spec.compute_dtype)
+    inputs, targets, mask = process_captions(captions)
+    logits, alignments = teacher_forced(
+        params["decoder"], spec.decoder, inputs, im_embed, fmaps,
+        training=training, generator=generator, dtype=spec.compute_dtype)
+    per_example = sequence_loss(logits, targets, mask,
+                                average_across_batch=False)
+    loss = (per_example * rewards).mean()
+    return loss, {"alignments": alignments, "mask": mask, "log_ppl": loss}

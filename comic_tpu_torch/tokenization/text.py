@@ -1,7 +1,7 @@
-"""Caption ids <-> text (the port's own copy of the parts of
-comic_tpu.tokenization.text that serving and XE training use; reference
-``id_to_caption``, src/infer_fn.py:46-75, and the caption encoders of
-manager_image_caption.py:206-228,263-281,334-357)."""
+"""Caption ids <-> text (the port's own copy of
+comic_tpu.tokenization.text; reference ``id_to_caption``,
+src/infer_fn.py:46-75, and the caption encoders of
+manager_image_caption.py:206-228,263-281,334-357,477-509)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .radix import RadixCodec
-from .vocab import Vocabulary
+from .vocab import EOS, GO, Vocabulary
 
 
 def ids_to_captions(
@@ -74,3 +74,39 @@ def encode_caption_tokens(
         return np.asarray([vocab.go_id] + ids + [vocab.eos_id],
                           dtype=np.int32)
     raise ValueError(f"Unknown token_type: {token_type}")
+
+
+def caption_strings_to_batched_ids(
+    captions: Sequence[str],
+    token_type: str,
+    vocab: Vocabulary,
+    radix_base: Optional[int] = None,
+    pad_id: int = -1,
+) -> np.ndarray:
+    """Re-tokenize hypothesis strings into a padded (N, longest) int32 id
+    batch: the XE targets of the SCST step (``captions_to_batched_ids``,
+    manager_image_caption.py:477-509).
+
+    char: characters outside the vocabulary are dropped, as comic_tpu does
+    (a hypothesis can render a special token such as <GO> literally,
+    whose '<' and '>' the char vocabulary lacks; the reference would
+    KeyError). word and radix wrap the words in <GO>/<EOS> and encode them
+    as encode_caption_tokens does (<UNK> for unknown words).
+    """
+    rows: List[np.ndarray] = []
+    for cap in captions:
+        if token_type == "char":
+            ids = [vocab.wtoi[ch] for ch in cap if ch in vocab.wtoi]
+            row = np.asarray([vocab.go_id] + ids + [vocab.eos_id],
+                             dtype=np.int32)
+        else:
+            toks = [GO] + cap.split() + [EOS]
+            row = encode_caption_tokens(toks, token_type, vocab, radix_base)
+        rows.append(row)
+    max_len = max(r.shape[0] for r in rows)
+    if max_len <= 1:
+        raise ValueError("All hypotheses are empty.")
+    out = np.full((len(rows), max_len), pad_id, dtype=np.int32)
+    for i, r in enumerate(rows):
+        out[i, : r.shape[0]] = r
+    return out

@@ -1,0 +1,362 @@
+"""SCST (self-critical sequence training): REINFORCE fine-tuning, the third
+training stage; counterpart of comic_tpu/training/scst.py (reference
+train_fn.py:150-307).
+
+One SCST step:
+  1. the rollout (under ``torch.no_grad``) encodes the image batch once and
+     runs the beam search (beam 7, the "samples") and the greedy baseline
+     off one shared attention memory; on the card their attention steps are
+     the kernels K1 and K2. It returns the decoded ids and the encoder
+     outputs, which stay on the device;
+  2. the host turns the ids into captions, scores them against the
+     references (CIDEr-D and BLEU; reward = score(beam hypothesis) -
+     score(greedy caption), train_fn.py:243-248) and re-encodes the
+     hypotheses as padded ids, reordered image-major;
+  3. the train step teacher-forces the hypotheses over the beam-repeated
+     encoder outputs (``repeat_interleave``: rows i*K..(i+1)*K-1 are image
+     i), with mean(per-example XE x reward) + attention-map loss + masked L2
+     (model_base.py:342-347), and updates the parameters in place. It takes
+     the torch-ops attention under autograd, so no kernel launches there.
+
+The rollout runs under ``no_grad``, not ``inference_mode``: its ``im_embed``
+and ``fmaps`` enter the train step's autograd graph (the memory projection
+runs inside ``teacher_forced``), and an inference tensor cannot be saved
+for backward. It must not run with grad enabled either: the decoder's
+parameters require grad, so the attention steps would take the torch ops,
+launch no kernel and keep every decode step's graph.
+
+Schedule (``scst_overlap``, default True, as comic_tpu): the rollout of
+batch t+1 is issued before batch t is scored and trained on, so batch t's
+hypotheses come from parameters one update older than those its gradient
+is applied to (comic_tpu's one-step-stale schedule); the run trains
+exactly ``max_step`` steps. ``scst_overlap=False`` is the reference's
+on-policy schedule: rollout, score and train on the same batch. The
+decoders run only to the batch's longest hypothesis (``xe._trim``), where
+comic_tpu pads to ``hypo_width`` and masks: the losses are the same.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import DeviceLike, resolve_device
+from ..configuration import Config
+from ..data.pipeline import ScstPipeline
+from ..data.preprocessing import preprocess_for
+from ..decoding.search import (beam_search_from_memory,
+                               greedy_or_sample_from_memory)
+from ..evaluation.scorers import CaptionScorer
+from ..models.attention import precompute
+from ..models.captioner import (ModelSpec, attention_map_loss,
+                                build_model_spec, init_params,
+                                process_captions, sequence_loss)
+from ..models.decoder import teacher_forced
+from ..models.encoders import encode_images
+from ..tokenization import (RadixCodec, Vocabulary,
+                            caption_strings_to_batched_ids, ids_to_captions)
+from ..utils.summaries import SummaryWriter
+from . import checkpoints as ckpt
+from .optimizer import Optimizer, masked_l2_loss, set_trainable
+from .schedule import cosine_schedule
+from .xe import TrainState, _resolve_vocab, _trim
+
+SCST_MAX_WORDS = 20  # forced during SCST sampling (model_base.py:203-206)
+
+
+def scst_decode_steps(config: Config, vocab: Vocabulary) -> int:
+    steps = SCST_MAX_WORDS
+    if config.token_type == "radix":
+        steps *= RadixCodec(len(vocab), config.radix_base).word_len
+    elif config.token_type == "char":
+        steps *= 5
+    return steps
+
+
+def hypo_width(config: Config, vocab: Vocabulary) -> int:
+    """Padded width of the hypothesis id batches: GO + body + EOS."""
+    return scst_decode_steps(config, vocab) + 2
+
+
+def make_rollout(spec: ModelSpec, config: Config, vocab: Vocabulary,
+                 device: DeviceLike = None) -> Callable:
+    """(params, images_u8, generator) -> (greedy_ids (B, T), beam_ids
+    (K, B, T), im_embed, fmaps), under no_grad on ``device``. The beam ids
+    are in the reference's beam-major layout, so host scoring sees
+    [im0_b0..imN_b0, im0_b1, ...]. ``generator`` (on ``device``) draws the
+    augment."""
+    device = resolve_device(device)
+    h, w = config.cnn_input_size
+    beam = int(config.scst_beam_size)
+    steps = scst_decode_steps(config, vocab)
+    augment = bool(config.cnn_input_augment)
+    preprocess = preprocess_for(config.cnn_name)
+
+    @torch.no_grad()
+    def rollout(params, images_u8, generator: Optional[torch.Generator] = None):
+        images = preprocess(images_u8, h, w, device, training=augment,
+                            generator=generator)
+        im_embed, fmaps = encode_images(
+            params["encoder"], images, spec.cnn_name, spec.fm_endpoint,
+            legacy=spec.legacy, dtype=spec.compute_dtype)
+        memory = precompute(params["decoder"]["attention"],
+                            spec.decoder.attention, fmaps,
+                            dtype=spec.compute_dtype)
+        # early exit: each decode stops once every row or beam emitted EOS
+        # (the same outputs as the full-length loop)
+        greedy = greedy_or_sample_from_memory(
+            params["decoder"], spec, im_embed, memory, max_steps=steps,
+            collect_alignments=False, early_exit=True)
+        _, all_beams = beam_search_from_memory(
+            params["decoder"], spec, im_embed, memory, beam_size=beam,
+            max_steps=steps, length_penalty=0.0, collect_alignments=False,
+            early_exit=True)
+        return greedy.ids, all_beams["ids"], im_embed, fmaps
+
+    return rollout
+
+
+def make_scst_train_step(spec: ModelSpec, config: Config,
+                         device: DeviceLike = None) -> Callable:
+    """(state, im_embed, fmaps, hypo_ids, rewards, generator) -> (state,
+    metrics of 0-d tensors). ``im_embed``/``fmaps`` are per image (from the
+    rollout) and are repeated on the device to the hypothesis rows;
+    ``hypo_ids`` (B*K, W) and ``rewards`` (B*K,) are IMAGE-major (row i*K +
+    k = image i, hypothesis k). ``generator`` (on ``device``) draws the
+    dropout."""
+    device = resolve_device(device)
+    beam = int(config.scst_beam_size)
+    map_scale = float(config.rnn_map_loss_scale)
+    l2_decay = float(config.l2_decay)
+
+    def train_step(state: TrainState, im_embed, fmaps, hypo_ids, rewards,
+                   generator: Optional[torch.Generator] = None):
+        params, opt = state.params, state.optimizer
+        caps, steps = _trim(hypo_ids)
+        caps = torch.as_tensor(caps).to(device, non_blocking=True)
+        rewards = torch.as_tensor(np.asarray(rewards, np.float32)).to(device)
+        im_k = im_embed.repeat_interleave(beam, dim=0)
+        fm_k = fmaps.repeat_interleave(beam, dim=0)
+        inputs, targets, mask = process_captions(caps)
+        logits, alignments = teacher_forced(
+            params["decoder"], spec.decoder, inputs, im_k, fm_k,
+            training=True, generator=generator, dtype=spec.compute_dtype)
+        per_example = sequence_loss(logits, targets, mask,
+                                    average_across_batch=False)
+        xe = (per_example * rewards).mean()
+        map_loss = attention_map_loss(alignments, map_scale,
+                                      valid_steps=steps)
+        reg = masked_l2_loss(params, opt.mask, l2_decay)
+        total = xe + map_loss + reg
+        total.backward()
+        opt.step(params)
+        metrics = {"scst_loss": xe, "map_loss": map_loss, "reg": reg,
+                   "total_loss": total}
+        return (TrainState(params, opt, state.step + 1),
+                {k: v.detach() for k, v in metrics.items()})
+
+    return train_step
+
+
+def score_and_encode(
+    scorer: CaptionScorer, config: Config, vocab: Vocabulary,
+    refs: List[List[str]], greedy_ids: np.ndarray, beam_ids: np.ndarray,
+    width: int,
+) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
+    """Host side of one SCST step: ids -> strings -> rewards -> padded ids
+    (beam-major rows, the scorer's layout)."""
+    base = config.radix_base
+    greedy_caps = ids_to_captions(greedy_ids, config.token_type, vocab, base)
+    beam, batch = beam_ids.shape[0], beam_ids.shape[1]
+    flat = beam_ids.reshape(beam * batch, -1)
+    sample_caps = ids_to_captions(flat, config.token_type, vocab, base)
+    # the scorer takes lists of singleton lists
+    hypos, sc_sample, sc_greedy = scorer.get_hypo_scores(
+        refs, [[c] for c in sample_caps], [[c] for c in greedy_caps])
+    rewards = (sc_sample - sc_greedy).astype(np.float32)
+    hypo_ids = caption_strings_to_batched_ids(
+        [h[0] for h in hypos], config.token_type, vocab, base)
+    fixed = np.full((hypo_ids.shape[0], width), -1, np.int32)
+    fixed[:, : min(width, hypo_ids.shape[1])] = hypo_ids[:, :width]
+    metrics = {"score_sample": float(np.mean(sc_sample)),
+               "score_greedy": float(np.mean(sc_greedy)),
+               "reward": float(np.mean(rewards))}
+    return fixed, rewards, metrics
+
+
+def host_score_shard(greedy_ids, beam_ids, refs, scorer: CaptionScorer,
+                     config: Config, vocab: Vocabulary, width: int
+                     ) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
+    """Host scoring half of one SCST step -> (hypo_ids, rewards, metrics),
+    one process (comic_tpu's multi-host shard waits for data parallelism).
+    The scorer works beam-major (row k*B + i, model_base.py:286-288); the
+    rows are reordered IMAGE-major (row i*K + k) for the train step."""
+    hypo_ids, rewards, score_metrics = score_and_encode(
+        scorer, config, vocab, refs, _host(greedy_ids), _host(beam_ids),
+        width)
+    beam = int(config.scst_beam_size)
+    batch = hypo_ids.shape[0] // beam
+    hypo_ids = hypo_ids.reshape(beam, batch, -1).transpose(1, 0, 2) \
+        .reshape(beam * batch, -1)
+    rewards = rewards.reshape(beam, batch).T.reshape(-1)
+    return hypo_ids, rewards, score_metrics
+
+
+def _host(ids) -> np.ndarray:
+    return ids.cpu().numpy() if isinstance(ids, torch.Tensor) \
+        else np.asarray(ids)
+
+
+def _finish_step(pending, state, train_step, scorer, config, vocab, width,
+                 generator, step):
+    """Score the pending rollout (host_score_shard), then run the
+    reward-weighted train step -> (state, metrics, step + 1)."""
+    (greedy_ids, beam_ids, im_embed, fmaps), refs = pending
+    hypo_ids, rewards, score_metrics = host_score_shard(
+        greedy_ids, beam_ids, refs, scorer, config, vocab, width)
+    state, metrics = train_step(state, im_embed, fmaps, hypo_ids, rewards,
+                                generator)
+    metrics = dict(metrics)
+    metrics.update(score_metrics)
+    return state, metrics, step + 1
+
+
+def _scst_idf_path(config: Config) -> Optional[str]:
+    """The scst-words IDF cache (train_fn.py:192-201): the config's
+    ``scst_idf_path``, else ``{dataset_dir}/captions/{pattern}.p`` with
+    the pattern filled by 'scst-words', where it exists."""
+    path = config.get("scst_idf_path")
+    if path:
+        return path
+    cand = os.path.join(
+        config.dataset_dir, "captions",
+        config.dataset_file_pattern.format("scst-words") + ".p")
+    return cand if os.path.exists(cand) else None
+
+
+def train_fn_scst(config: Config, *,
+                  max_steps_override: Optional[int] = None, pipe=None,
+                  device: DeviceLike = None) -> Dict[str, float]:
+    """The SCST stage driver on ``device`` (None: the card). ``pipe`` may
+    be passed in already built (by default the config's ScstPipeline, as
+    comic_tpu builds it). Returns the last step's metrics. Artifacts in
+    config.log_path: config.pkl (+ txt), events.jsonl, model-*/
+    model_compact-* checkpoints."""
+    device = resolve_device(device)
+    vocab = _resolve_vocab(config)
+    spec = build_model_spec(config, vocab)
+    own = pipe is None
+    if own:
+        pipe = ScstPipeline(config, vocab)
+    try:
+        return _train_scst(config, spec, vocab, pipe, max_steps_override,
+                           device)
+    finally:
+        if own:
+            pipe.close()
+
+
+def _train_scst(config: Config, spec: ModelSpec, vocab: Vocabulary, pipe,
+                max_steps_override: Optional[int], device: torch.device
+                ) -> Dict[str, float]:
+    if max_steps_override is not None:
+        config.max_step = max_steps_override
+    max_step = int(config.max_step)
+
+    idf_path = _scst_idf_path(config)
+    weights = {"ciderD": float(config.scst_weight_ciderD),
+               "bleu": list(config.scst_weight_bleu)}
+    scorer = CaptionScorer(idf_path, weights)
+    if idf_path is None:
+        print("WARNING: no scst-words IDF cache found; CIDEr-D uses "
+              "per-batch corpus document frequencies.")
+
+    params = init_params(spec, torch.Generator().manual_seed(
+        config.rand_seed), device=device)
+    schedule = cosine_schedule(config.lr_start, config.lr_end, max_step)
+    optimizer = Optimizer(
+        params, schedule, optimiser=config.optimiser,
+        adam_epsilon=config.adam_epsilon, freeze_scopes=config.freeze_scopes,
+        clip_gradient_norm=config.clip_gradient_norm)
+    params, start_step, mode = ckpt.restore_model(
+        params, config.checkpoint_path,
+        resume=bool(config.resume_training),
+        exclude_scopes=config.checkpoint_exclude_scopes, optimizer=optimizer)
+    set_trainable(params, optimizer.mask)
+    print(f"INFO: restore mode = {mode}, start step = {start_step}")
+
+    os.makedirs(config.log_path, exist_ok=True)
+    config.save(config.log_path)
+
+    rollout = make_rollout(spec, config, vocab, device)
+    train_step = make_scst_train_step(spec, config, device)
+    width = hypo_width(config, vocab)
+    writer = SummaryWriter(config.log_path)
+    saver = ckpt.make_saver(config.get("checkpoint_backend", "msgpack"))
+    save_every = max(config.split_sizes["train"] // config.batch_size_train,
+                     1)
+    generator = torch.Generator(device=device).manual_seed(
+        config.rand_seed + 2)
+    state = TrainState(params, optimizer, start_step)
+    step = start_step
+    ov = config.get("scst_overlap")
+    overlap = True if ov is None else bool(ov)
+    pending = None  # (rollout outputs, refs) of the batch not yet trained on
+    metrics: Dict[str, torch.Tensor] = {}
+    t_last, n_since = time.time(), 0
+    data_iter = iter(pipe)
+    try:
+        while step < max_step:
+            # overlapped mode finishes the PREVIOUS rollout each iteration:
+            # once the pending one lands on the final step, no rollout is
+            # left to issue (the run trains exactly max_step steps)
+            need_rollout = (not overlap
+                            or step + (1 if pending is not None else 0)
+                            < max_step)
+            if need_rollout:
+                images, refs = next(data_iter)
+                out = rollout(state.params, images, generator)
+            if not overlap:
+                state, metrics, step = _finish_step(
+                    (out, refs), state, train_step, scorer, config, vocab,
+                    width, generator, step)
+                n_since += config.batch_size_train
+            else:
+                if pending is not None:
+                    state, metrics, step = _finish_step(
+                        pending, state, train_step, scorer, config, vocab,
+                        width, generator, step)
+                    n_since += config.batch_size_train
+                pending = (out, refs) if need_rollout else None
+
+            if step > 0 and step % 25 == 0 and metrics:
+                dt = time.time() - t_last
+                m = {k: float(v) for k, v in metrics.items()}
+                writer.scalars(step, dict(
+                    m, examples_per_sec=n_since / max(dt, 1e-9)))
+                print(f"scst step {step}/{max_step} reward "
+                      f"{m.get('reward', 0):.4f} "
+                      f"{n_since / max(dt, 1e-9):.1f} ex/s")
+                t_last, n_since = time.time(), 0
+            if step > 0 and step % save_every == 0:
+                saver.save(config.log_path, step, state.params,
+                           optimizer.state_dict(state.params),
+                           max_saves=config.max_saves)
+
+        if pending is not None:
+            state, metrics, step = _finish_step(
+                pending, state, train_step, scorer, config, vocab, width,
+                generator, step)
+        saver.save(config.log_path, step, state.params,
+                   optimizer.state_dict(state.params),
+                   max_saves=config.max_saves)
+    finally:
+        if hasattr(data_iter, "close"):
+            data_iter.close()
+        saver.close()
+        writer.close()
+    return {k: float(v) for k, v in metrics.items()}

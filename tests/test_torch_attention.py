@@ -199,6 +199,22 @@ def test_k2_plain_matches_attend(keys_dtype, tol):
     np.testing.assert_allclose(got_ctx.numpy(), want_ctx, **tol)
 
 
+@pytest.mark.parametrize("keys_dtype,tol", [(jnp.float32, F32),
+                                            (jnp.bfloat16, BF16)])
+def test_k1_plain_matches_attend_grouped_beam7(keys_dtype, tol):
+    """Beam 7, the SCST rollout's: 7 queries per image over one memory."""
+    dims = (B, 7, L, U, H, C)
+    jcfg, p, q, pq, keys, mean, m2, args, t, tkeys, targs = \
+        _kernel_inputs(keys_dtype, dims)
+    mem = jatt.AttentionMemory(keys, jsplit(keys, H), mean, m2)
+    want_ctx, want_align = jatt.attend_grouped(p, jcfg, q, mem)
+    got_ctx, got_align = k1.grouped_add_ln_attention(
+        t(pq), tkeys, t(mean), t(m2), *targs, num_heads=H)
+    assert got_align.shape == (B, 7, H, L)
+    np.testing.assert_allclose(got_align.numpy(), want_align, **tol)
+    np.testing.assert_allclose(got_ctx.numpy(), want_ctx, **tol)
+
+
 def test_k1_plain_matches_attend_grouped_main_width():
     """The main path's widths (L=196, U=512, H=8, beam 3) in bfloat16, at
     batch 1: XLA's CPU runtime refuses the reference's batched bf16 context

@@ -51,13 +51,15 @@ def _inputs(card, rows, beams, L, U, keys_dtype):
 # copied without TMA); U=1024 (two passes over U); batch 1; beam 7; the
 # main path's (25, 3, 196, 512, 8), whose f32 keys are the largest staged
 # chunk the decode loop gives the kernels; the eval-perplexity pass's 61
-# rows (K2 at batch_size_eval); and U=4096, whose chunk fits shared memory
-# at no cluster size, so the keys are read in place
+# rows (K2 at batch_size_eval); the SCST rollout's batch of 10 (K1 at beam
+# 7, K2 at R=10 for the greedy baseline); and U=4096, whose chunk fits
+# shared memory at no cluster size, so the keys are read in place
 UNSTAGED = (1, 3, 196, 4096, 8)
 SHAPES = [(2, 3, 7, 16, 4), (3, 7, 33, 96, 3), (4, 3, 5, 64, 2),
           (2, 3, 50, 512, 1), (3, 7, 33, 90, 3), (2, 3, 20, 1024, 8),
           (1, 3, 196, 512, 8), (25, 7, 196, 512, 8), (25, 3, 197, 512, 8),
-          (25, 3, 196, 512, 8), (61, 3, 196, 512, 8), UNSTAGED]
+          (25, 3, 196, 512, 8), (61, 3, 196, 512, 8), (10, 7, 196, 512, 8),
+          UNSTAGED]
 
 
 @pytest.mark.parametrize("keys_dtype", [torch.float32, torch.bfloat16])
@@ -244,4 +246,98 @@ def test_xe_gradients_on_card_match_cpu(card):
         tol = 1e-2 if path[2:3] and path[2] in stem else 1e-4
         torch.testing.assert_close(got[path], w, rtol=0,
                                    atol=tol * w.abs().max().item(),
+                                   msg="/".join(path))
+
+
+def test_scst_step_on_card(card):
+    """One SCST step at small widths (radix 16, LSTM 32, 2 heads, 64x64,
+    beam 7, float32, TF32 off): the rollout runs under no_grad, launches
+    K1 (beam search) and K2 (greedy baseline) and gives the CPU's ids; its
+    encoder outputs are not inference tensors, so the train step can save
+    them for its backward, and the train step launches nothing. The
+    references of each image are two of its beam hypotheses on the CPU,
+    so the rewards spread both ways; the train step's loss
+    and updated parameters equal the CPU's within 1e-4 relative."""
+    import numpy as np
+
+    from comic_tpu_torch.configuration import Config
+    from comic_tpu_torch.evaluation import CaptionScorer
+    from comic_tpu_torch.models import captioner as tcap
+    from comic_tpu_torch.tokenization import Vocabulary, ids_to_captions
+    from comic_tpu_torch.training import optimizer as topt
+    from comic_tpu_torch.training import scst
+    from comic_tpu_torch.training.xe import TrainState
+
+    wtoi = {"<PAD>": -1, "<UNK>": 0, "<GO>": 1, "<EOS>": 2}
+    wtoi.update({f"w{i}": i + 3 for i in range(29)})
+    vocab = Vocabulary(dict(wtoi))
+    config = Config(token_type="radix", radix_base=16, rnn_size=32,
+                    rnn_word_size=16, attn_num_heads=2,
+                    compute_dtype="float32", cnn_input_size=(64, 64),
+                    attn_keep_prob=1.0, dropout_rnn_in=0.0,
+                    dropout_rnn_out=0.0, cnn_input_augment=False,
+                    batch_size_train=2, scst_beam_size=7,
+                    freeze_scopes="encoder/cnn")
+    spec = tcap.build_model_spec(config, vocab)
+    params = tcap.init_params(spec, generator=torch.Generator().manual_seed(3),
+                              device="cpu")
+    # spread the logits and favour the leading digits 0 and 1, so that the
+    # digit pairs decode to the 29 words, and EOS
+    proj = params["decoder"]["output_projection"]
+    proj["kernel"] *= 3
+    proj["bias"][:2] = 2.0
+    proj["bias"][spec.decoder.end_id] = 0.5
+    images = np.random.default_rng(5).integers(0, 256, (2, 256, 256, 3),
+                                               dtype=np.uint8)
+    scorer = CaptionScorer(None, {"ciderD": 1.0, "bleu": [0, 0, 0, 2]})
+    width = scst.hypo_width(config, vocab)
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    refs, out = None, {}
+    try:
+        for dev in ("cpu", "cuda"):  # the CPU's beams make the references
+            p = tree_to(topt._map_paths(lambda _, v: v.clone(), params),
+                        torch.device(dev))
+            opt = topt.Optimizer(p, lambda n: 1e-3,
+                                 freeze_scopes="encoder/cnn")
+            topt.set_trainable(p, opt.mask)
+            n1 = k1.grouped_add_ln_attention.launches
+            n2 = k2.fused_add_ln_attention.launches
+            greedy, beams, im_embed, fmaps = scst.make_rollout(
+                spec, config, vocab, dev)(p, images)
+            rolled = (k1.grouped_add_ln_attention.launches - n1,
+                      k2.fused_add_ln_attention.launches - n2)
+            for t in (im_embed, fmaps):
+                assert not t.is_inference() and not t.requires_grad
+            if refs is None:
+                caps = ids_to_captions(beams.reshape(14, -1).numpy(),
+                                       "radix", vocab, 16)
+                refs = [[caps[2 + i], caps[8 + i], "w1 w2 w3"]
+                        for i in range(2)]
+            hypo, rewards, _ = scst.host_score_shard(
+                greedy, beams, refs, scorer, config, vocab, width)
+            n1 = k1.grouped_add_ln_attention.launches
+            n2 = k2.fused_add_ln_attention.launches
+            state, metrics = scst.make_scst_train_step(spec, config, dev)(
+                TrainState(p, opt, 0), im_embed, fmaps, hypo, rewards)
+            stepped = (k1.grouped_add_ln_attention.launches - n1,
+                       k2.fused_add_ln_attention.launches - n2)
+            out[dev] = (greedy.cpu(), beams.cpu(), rewards, rolled, stepped,
+                        metrics["total_loss"].item(),
+                        {path: v.detach().cpu()
+                         for path, v in topt.tree_items(state.params)})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = allow
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu[3][0] > 0 and gpu[3][1] > 0 and gpu[4] == (0, 0)
+    assert torch.equal(gpu[0], cpu[0]) and torch.equal(gpu[1], cpu[1])
+    np.testing.assert_array_equal(gpu[2], cpu[2])
+    assert np.abs(cpu[2]).max() > 0
+    assert abs(gpu[5] - cpu[5]) <= 1e-4 * abs(cpu[5])
+    for path, w in cpu[6].items():
+        torch.testing.assert_close(gpu[6][path], w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item(),
                                    msg="/".join(path))

@@ -1,7 +1,7 @@
 """comic_tpu_torch's training CLI against comic_tpu's on the CPU: the flag
 surface, the legacy overrides, the experiment naming and the stage chain
-(decoder, cnn_finetune) with the configs it builds, and the error
-capture."""
+(decoder, cnn_finetune; the scst stage in test_torch_scst.py) with the
+configs it builds, and the error capture."""
 
 import os
 
@@ -95,8 +95,9 @@ def test_stages_that_are_refused(tmp_path):
         with pytest.raises(NotImplementedError):
             cli.resolve_stage(_args(cli, argv + ["--legacy", "--train_mode",
                                                  "cnn_finetune"]))
-    with pytest.raises(NotImplementedError, match="SCST"):
-        tcli.resolve_stage(_args(tcli, argv + ["--train_mode", "scst"]))
+        # scst restores the cnn_finetune run, which must exist
+        with pytest.raises(ValueError, match="CNN finetune log path"):
+            cli.resolve_stage(_args(cli, argv + ["--train_mode", "scst"]))
     with pytest.raises(ValueError, match="seed"):
         tcli.stage_config(argv + ["--run", "9"])
 
