@@ -44,11 +44,27 @@ Phases (any failure raises and exits non-zero):
  11. scst-agree: one SCST step at batch 2, beam 7, float32, TF32 off,
      dropout and augment off, on the card and on the CPU from the same
      parameters and images: greedy and all-beam ids and the rewards
-     exactly equal, the loss and updated parameters within TOL_TRAIN.
+     exactly equal, the loss and updated parameters within TOL_TRAIN;
+ 12. eval-sweep: the infer CLI (comic_tpu_torch.cli.infer.main) over an
+     experiment directory (config.pkl at COMIC-256 defaults, bf16; the
+     smoke weights' and the decoder stage's compact checkpoints) on
+     in-memory images with a COCO annotations JSON of 5 random references
+     an image: the test split at beam 3 (4 batches of 25), the COCO server
+     split at beam 3 (batch forced to 61, 2 batches), the test split
+     greedy, then scores only from the caption JSONs. K1 must launch in
+     the beam sweeps and K2 in the greedy one, one pipeline must serve a
+     sweep, every image get a caption, the BLEU, ROUGE-L and CIDEr scores
+     be finite, the peak device memory stay flat from the first checkpoint
+     to the last, and the scores-only call repeat the first call's scores;
+     decode and scoring seconds printed per checkpoint;
+ 13. eval-agree: sweep_checkpoints over one checkpoint at batch 2, beam 3,
+     float32, TF32 off, 4 images, on the card and on the CPU: the caption
+     JSON and metric_scores.txt byte-identical.
 
 Phase 3 holds the kernels at the serving shapes, at K2's eval-perplexity
-batch and at the SCST rollout's shapes (K1 at batch 10, beam 7; K2 at 10
-rows for the greedy baseline). Phases 4 and 5 also time one steady batch
+batch, at the SCST rollout's shapes (K1 at batch 10, beam 7; K2 at 10
+rows for the greedy baseline) and K1 at the COCO server split's batch of
+61 (also checked bitwise repeatable). Phases 4 and 5 also time one steady batch
 and profile one more, phases 7 and 8 profile one more train step
 (torch.profiler; the per-kernel tables go to smoke_out/profile_*.txt).
 
@@ -86,6 +102,13 @@ DECODER_STEPS, CNNFT_STEPS = 20, 10
 # the SCST stage: the CLI's batch and beam, the steps the smoke takes, the
 # references per image
 SCST_B, SCST_K, SCST_STEPS, SCST_REFS = 10, 7, 20, 5
+# checkpoint evaluation: the batch the infer CLI forces on the COCO server
+# split (coco_valid), the images of the test file list (4 batches of 25)
+# and of the server split (2 batches of 61), the references per image in
+# the annotations, and how far the peak device memory after the sweep's
+# last checkpoint may sit above that after its first
+COCO_B, EVAL_TEST_N, EVAL_COCO_N, EVAL_REFS = 61, 100, 122, 5
+SWEEP_MEMORY_SLACK = 8 * 2**20
 # the decoder stage's mean XE log-perplexity over its last 3 steps must sit
 # this far (nats) below that of its first 3: about half the drop measured
 # on an H100 80GB HBM3 at 700 W (6.09 -> 5.25, 0.84 nats)
@@ -250,15 +273,17 @@ def check_kernels():
 
     records = {}
     # K1 and K2 at the serving batch ("main"), K2 at the eval-perplexity
-    # batch of the training phases (one query per caption row), and both at
-    # the SCST rollout's batch: K1 for the beam-7 search, K2 for the greedy
-    # baseline
+    # batch of the training phases (one query per caption row), both at
+    # the SCST rollout's batch (K1 for the beam-7 search, K2 for the greedy
+    # baseline), and K1 at the COCO server split's forced batch of 61 (the
+    # eval sweep; K2's rows there are eval_shape's 61)
     for name, beams, rows, tag in (
             ("grouped_add_ln_attention", K, B, "main"),
             ("fused_add_ln_attention", None, B, "main"),
             ("fused_add_ln_attention", None, EVAL_B, "eval_shape"),
             ("grouped_add_ln_attention", SCST_K, SCST_B, "scst_shape"),
-            ("fused_add_ln_attention", None, SCST_B, "scst_shape")):
+            ("fused_add_ln_attention", None, SCST_B, "scst_shape"),
+            ("grouped_add_ln_attention", K, COCO_B, "coco_shape")):
         worst = 0.0
         for keys_dtype in (torch.float32, torch.bfloat16):
             query, keys, mean, m2, vecs = kernel_inputs(keys_dtype, rows,
@@ -313,6 +338,14 @@ def check_kernels():
                                      f"the rounding slack")
             if not (torch.isfinite(ctx).all() and torch.isfinite(align).all()):
                 raise AssertionError(f"{name} produced non-finite values")
+            if tag == "coco_shape":  # a new row count for the plan
+                again = kern()
+                if not (torch.equal(again[0], ctx)
+                        and torch.equal(again[1], align)):
+                    raise AssertionError(f"{name} R={rows} is not bitwise "
+                                         "repeatable")
+                print(f"{name} R={rows} keys={str(keys_dtype)[6:]}: a "
+                      "second launch gives bitwise the same outputs")
             worst = max(worst, *err.values())
         # times and bound at the main path's dtype (bf16 keys)
         ms, host_ms = device_ms(kern)
@@ -524,18 +557,25 @@ def agreement_phase(ckpt_state):
 
 
 class MemoryImages:
-    """The training pipelines' image loader: a seeded uint8 256x256 image
-    per record path, made in memory (no image files are decoded)."""
+    """The pipelines' image loader: a seeded uint8 256x256 image per record
+    path, made in memory (no image files are decoded). Counts its loads."""
+
+    def __init__(self):
+        self.loads = 0
 
     def load(self, paths):
         import numpy as np
 
+        self.loads += 1
         out = np.empty((len(paths), 256, 256, 3), np.uint8)
         for i, p in enumerate(paths):
             idx = int(re.search(r"(\d+)\.jpg$", p).group(1))
             out[i] = np.random.default_rng([SEED, idx]).integers(
                 0, 256, (256, 256, 3), dtype=np.uint8)
         return out
+
+    def close(self):
+        pass
 
 
 def caption_records(split, n, first):
@@ -656,7 +696,8 @@ def train_phase(stage, steps, ckpt_path, kernels):
     profile_train_step(config, vocab, train_pipe, tag)
     train_pipe.close()
     eval_pipe.close()
-    return eval_launches, {"head": head, "tail": tail, "losses": losses}
+    return eval_launches, {"head": head, "tail": tail, "losses": losses,
+                           "log_path": config.log_path}
 
 
 def profile_train_step(config, vocab, train_pipe, tag):
@@ -1122,6 +1163,302 @@ def scst_agree_phase(ckpt_state):
                              "with the CPU's")
 
 
+class InferImages:
+    """Within a ``with`` block, every InferencePipeline reads MemoryImages
+    in place of image files (it builds its loader from the pipeline
+    module's ``_ImageLoaderPool`` when it is constructed). ``loaders``
+    holds each loader built."""
+
+    def __enter__(self):
+        from comic_tpu_torch.data import pipeline
+
+        self.pipeline, self.saved = pipeline, pipeline._ImageLoaderPool
+        self.loaders = []
+
+        def build(*_, **__):
+            self.loaders.append(MemoryImages())
+            return self.loaders[-1]
+
+        pipeline._ImageLoaderPool = build
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline._ImageLoaderPool = self.saved
+
+
+class SweepProbe:
+    """Records what sweep_checkpoints does, checkpoint by checkpoint: the
+    kernels' launches, the seconds in run_inference (the decode on the
+    card, closed by the host copy of the last batch's ids) and in
+    evaluate_captions (host scoring), the infer batch, and the peak device
+    memory after the checkpoint. The sweep looks these functions up as
+    attributes of comic_tpu_torch.inference when it runs, so the probe
+    wraps those attributes for the length of a ``with`` block."""
+
+    BLOCKS = ("run_inference", "evaluate_captions", "evaluate_model")
+
+    def __init__(self, kernels):
+        from comic_tpu_torch import inference
+
+        self.inference, self.kernels = inference, kernels
+        self.checkpoints = []
+
+    def __enter__(self):
+        import torch
+
+        self.saved = {n: getattr(self.inference, n) for n in self.BLOCKS}
+        run, score, evaluate = (self.saved[n] for n in self.BLOCKS)
+
+        def timed(fn, key):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self.current[key] += time.perf_counter() - t0
+                return out
+            return call
+
+        def probed_run(config, *args, **kwargs):
+            self.current["batch"] = config.batch_size_infer
+            return timed(run, "decode_s")(config, *args, **kwargs)
+
+        def probed_evaluate(config, ckpt_path, *args, **kwargs):
+            self.current = {"name": os.path.basename(ckpt_path),
+                            "decode_s": 0.0, "score_s": 0.0, "batch": None}
+            before = [k.launches for k in self.kernels]
+            out = evaluate(config, ckpt_path, *args, **kwargs)
+            self.current["launches"] = [k.launches - b for k, b in
+                                        zip(self.kernels, before)]
+            self.current["peak_bytes"] = torch.cuda.max_memory_allocated()
+            self.checkpoints.append(self.current)
+            return out
+
+        self.inference.run_inference = probed_run
+        self.inference.evaluate_captions = timed(score, "score_s")
+        self.inference.evaluate_model = probed_evaluate
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.inference, name, fn)
+
+
+def eval_dataset(root):
+    """The eval phases' dataset and annotations under ``root``: the test
+    split's file list (EVAL_TEST_N names, ids 1 on), the COCO server
+    split's directory (EVAL_COCO_N empty files under val2014/, ids 1001
+    on; the images come from MemoryImages), and a COCO annotations JSON of
+    EVAL_REFS references of 8-20 random words for every image. -> the
+    annotations' path"""
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "captions"), exist_ok=True)
+    os.makedirs(os.path.join(root, "val2014"), exist_ok=True)
+    test_ids = range(1, EVAL_TEST_N + 1)
+    coco_ids = range(1001, 1001 + EVAL_COCO_N)
+    with open(os.path.join(root, "captions", "filenames_test.txt"), "w") as f:
+        f.write("\n".join(f"images/COCO_test_{i:012d}.jpg" for i in test_ids))
+    for i in coco_ids:
+        open(os.path.join(root, "val2014", f"COCO_val2014_{i:012d}.jpg"),
+             "w").close()
+    rng = np.random.default_rng([SEED, 5])
+    anns = [{"image_id": i, "caption": " ".join(
+        f"w{w}" for w in rng.integers(0, 10000, int(rng.integers(8, 21))))}
+        for i in list(test_ids) + list(coco_ids) for _ in range(EVAL_REFS)]
+    path = os.path.join(root, "annotations.json")
+    with open(path, "w") as f:
+        json.dump({"annotations": anns}, f)
+    return path
+
+
+def read_score_rows(save_dir):
+    """metric_scores.txt -> [{column: value}] of its rows, under the
+    header above each."""
+    rows, header = [], None
+    with open(os.path.join(save_dir, "metric_scores.txt")) as f:
+        for line in f:
+            cells = line.rstrip("\n").split("\t")
+            if cells[0] == "checkpoint":
+                header = cells
+            else:
+                rows.append(dict(zip(header, cells)))
+    return rows
+
+
+def eval_sweep_phase(kernels, ckpt_paths):
+    """Phase eval-sweep: the infer CLI (comic_tpu_torch.cli.infer.main) on
+    one experiment directory (config.pkl at COMIC-256 defaults, bf16, the
+    compact checkpoints ``ckpt_paths``) over in-memory images: (a) the test
+    split at beam 3, (b) the COCO server split at beam 3 (batch forced to
+    61), (c) the test split greedy, (d) (a) again scoring the existing
+    caption JSONs only. Each call must launch its kernel (K1 in a and b, K2
+    in c, none in d), build one pipeline, write a caption JSON of every
+    image per checkpoint and finite scores, and keep its peak device
+    memory flat from the first checkpoint to the last; (d)'s scores must
+    equal (a)'s. -> launches per kernel per call"""
+    import numpy as np
+    import torch
+
+    from comic_tpu_torch.cli import infer
+    from comic_tpu_torch.inference import infer_dir_name
+
+    root = os.path.join(OUT, "eval")
+    data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
+    ann = eval_dataset(data)
+    smoke_config(3, B, "bfloat16").save(exp)
+    for i, path in enumerate(ckpt_paths, 1):
+        shutil.copy(path, os.path.join(exp, f"model_compact-{i}.msgpack"))
+    names = [f"model_compact-{i}" for i in range(1, len(ckpt_paths) + 1)]
+    java = shutil.which("java")
+    print("eval-sweep metrics: Bleu_1-4, ROUGE_L and CIDEr (CIDEr-D) on the "
+          "host; METEOR and SPICE " + (
+              "skipped: no jar_dir given (they need meteor-1.5.jar and "
+              "spice-1.0.jar)" if java else
+              "skipped: no java on PATH (they need Java and the jars in "
+              "--jar_dir)") + "; PTB tokenization through the Python "
+          "fallback (no CoreNLP jar)")
+    base = ["--infer_checkpoints_dir", exp, "--dataset_dir", data,
+            "--annotations_file", ann]
+    calls = (("test_beam3", [], EVAL_TEST_N, B, 0),
+             ("coco_valid_beam3", ["--infer_set", "coco_valid"], EVAL_COCO_N,
+              COCO_B, 0),
+             ("test_greedy", ["--infer_beam_size", "1"], EVAL_TEST_N, B, 1),
+             ("test_beam3_scores_only", ["--run_inference", ""], EVAL_TEST_N,
+              None, None))
+    launches, results = {}, {}
+    knames = [k.__name__ for k in kernels]
+    for tag, extra, n_images, batch, kernel in calls:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with InferImages() as images, SweepProbe(kernels) as probe:
+            results[tag] = infer.main(base + extra)
+        wall = time.perf_counter() - t0
+        launches[tag] = [k.launches for k in kernels]
+        cks = probe.checkpoints
+        if [c["name"] for c in cks] != names or list(results[tag]) != names:
+            raise AssertionError(f"eval-sweep {tag}: evaluated "
+                                 f"{[c['name'] for c in cks]}, scored "
+                                 f"{list(results[tag])}, expected {names}")
+        decoded = kernel is not None
+        if decoded:
+            if len(images.loaders) != 1 or batch != cks[0]["batch"]:
+                raise AssertionError(
+                    f"eval-sweep {tag}: {len(images.loaders)} pipelines, "
+                    f"batch {cks[0]['batch']}; expected one, batch {batch}")
+            if images.loaders[0].loads != len(names) * n_images // batch:
+                raise AssertionError(
+                    f"eval-sweep {tag}: {images.loaders[0].loads} batches "
+                    f"loaded, expected {len(names) * n_images // batch}")
+            if not all(c["launches"][kernel] > 0 for c in cks):
+                raise AssertionError(
+                    f"eval-sweep {tag}: {knames[kernel]} did not launch for "
+                    f"every checkpoint: {[c['launches'] for c in cks]}")
+            grow = cks[-1]["peak_bytes"] - cks[0]["peak_bytes"]
+            if grow > SWEEP_MEMORY_SLACK:
+                raise AssertionError(
+                    f"eval-sweep {tag}: peak device memory grew {grow} B "
+                    f"from the first checkpoint to the last")
+        elif any(launches[tag]) or images.loaders:
+            raise AssertionError(f"eval-sweep {tag}: the scores-only call "
+                                 f"decoded: {launches[tag]}, "
+                                 f"{len(images.loaders)} pipelines")
+        infer_set = "coco_valid" if "coco" in tag else "test"
+        save_dir = os.path.join(exp, infer_dir_name(smoke_config(
+            1 if kernel == 1 else 3, B, "bfloat16").update(
+                infer_set=infer_set)))
+        for name in names:
+            with open(os.path.join(save_dir, f"captions___{name}.json")) as f:
+                caps = json.load(f)
+            if len(caps) != n_images or len({c["image_id"] for c in caps}) \
+                    != n_images:
+                raise AssertionError(f"eval-sweep {tag}: {name}'s caption "
+                                     f"JSON has {len(caps)} entries")
+        rows = read_score_rows(save_dir)[-len(names):]
+        metrics = ["Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L", "CIDEr"]
+        if [r["checkpoint"] for r in rows] != names or not all(
+                np.isfinite(float(r[m])) for r in rows for m in metrics) \
+                or not all(np.isfinite(results[tag][n][m])
+                           for n in names for m in metrics):
+            raise AssertionError(f"eval-sweep {tag}: score rows {rows}")
+        with open(os.path.join(save_dir, "metric_scores.csv")) as f:
+            csv_rows = [ln for ln in f.read().splitlines()
+                        if not ln.startswith("checkpoint")]
+        detailed = [f for f in os.listdir(save_dir)
+                    if f.startswith("metric_scores_detailed_")]
+        if len(csv_rows) != len(rows) * (2 if tag.endswith("only") else 1) \
+                or len(detailed) != len(csv_rows):
+            raise AssertionError(f"eval-sweep {tag}: {len(csv_rows)} csv rows"
+                                 f", {len(detailed)} detailed JSONs")
+        per_ckpt = "; ".join(
+            f"{c['name']} decode {c['decode_s']:.3f} s, scoring "
+            f"{c['score_s']:.3f} s, peak memory "
+            f"{c['peak_bytes'] / 2**20:.1f} MiB" for c in cks)
+        print(f"eval-sweep {tag}: {len(names)} checkpoints x {n_images} "
+              f"images in {wall:.2f} s through cli.infer.main "
+              f"({len(names) * n_images / wall:.1f} captions/s, the first "
+              f"call included){f', batch {batch}' if decoded else ''}; "
+              f"launches {dict(zip(knames, launches[tag]))}; {per_ckpt}; "
+              "scores " + "; ".join(
+                  f"{n}: " + " ".join(f"{m}={results[tag][n][m]:.6f}"
+                                      for m in metrics) for n in names))
+    if results["test_beam3_scores_only"] != results["test_beam3"]:
+        raise AssertionError("eval-sweep: the scores-only call's scores "
+                             "differ from the first call's")
+    return launches
+
+
+def eval_agree_phase(ckpt_path):
+    """Phase eval-agree: sweep_checkpoints over one checkpoint (the smoke
+    weights) at batch 2, beam 3, float32, TF32 off, on 4 in-memory images,
+    on the card and on the CPU: the caption JSON and metric_scores.txt
+    must be byte-identical, and the card's sweep must launch K1."""
+    import torch
+
+    from comic_tpu_torch.inference import infer_dir_name, sweep_checkpoints
+    from comic_tpu_torch.ops import grouped_attention as k1
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = os.path.join(OUT, "eval-agree")
+    data = os.path.join(root, "data")
+    os.makedirs(os.path.join(data, "captions"))
+    with open(os.path.join(data, "captions", "filenames_test.txt"), "w") as f:
+        f.write("\n".join(f"images/COCO_test_{i:012d}.jpg"
+                          for i in range(1, 5)))
+    ann = os.path.join(OUT, "eval", "data", "annotations.json")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        config = smoke_config(3, 2, "float32")
+        config.update(log_path=os.path.join(root, dev), dataset_dir=data)
+        os.makedirs(config.log_path)
+        shutil.copy(ckpt_path, os.path.join(config.log_path,
+                                            "model_compact-1.msgpack"))
+        before = k1.grouped_add_ln_attention.launches
+        t0 = time.perf_counter()
+        with InferImages():
+            scores = sweep_checkpoints(config, ann, device=dev)
+        wall = time.perf_counter() - t0
+        save_dir = os.path.join(config.log_path, infer_dir_name(config))
+        files = []
+        for name in ("captions___model_compact-1.json", "metric_scores.txt"):
+            with open(os.path.join(save_dir, name), "rb") as f:
+                files.append(f.read())
+        out[dev] = (files, scores,
+                    k1.grouped_add_ln_attention.launches - before, wall)
+    same = out["cuda"][0] == out["cpu"][0]
+    print(f"eval-agree (float32, TF32 off, batch 2, beam 3, 4 images): "
+          f"caption JSON and metric_scores.txt card vs CPU "
+          f"{'byte-identical' if same else 'DIFFER'}; K1 launched "
+          f"{out['cuda'][2]} times on the card; {out['cuda'][3]:.2f} s on "
+          f"the card, {out['cpu'][3]:.2f} s on the CPU; CIDEr "
+          f"{out['cuda'][1]['model_compact-1']['CIDEr']:.6f}")
+    if not (same and out["cuda"][1] == out["cpu"][1] and out["cuda"][2] > 0):
+        raise AssertionError("eval-agree: the card's sweep differs from the "
+                             "CPU's")
+
+
 def main():
     import torch
 
@@ -1190,6 +1527,18 @@ def main():
         records[k.__name__]["launches"] += scst_launches[i]
         records[k.__name__]["scst_shape"]["launches"] = scst_launches[i]
     scst_agree_phase(state)
+
+    # checkpoint evaluation through the infer CLI: the smoke weights and
+    # the decoder stage's
+    sweep = eval_sweep_phase(kernels, [ckpt_path, os.path.join(
+        dec["log_path"], f"model_compact-{DECODER_STEPS}.msgpack")])
+    for i, k in enumerate(kernels):
+        records[k.__name__]["launches"] += sum(v[i] for v in sweep.values())
+        records[k.__name__]["eval_sweep_launches"] = {
+            tag: v[i] for tag, v in sweep.items()}
+    records["grouped_add_ln_attention"]["coco_shape"]["launches"] = \
+        sweep["coco_valid_beam3"][0]
+    eval_agree_phase(ckpt_path)
 
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))

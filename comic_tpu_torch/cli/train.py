@@ -13,7 +13,8 @@ with the CNN frozen; ``cnn_finetune`` restores the decoder run (lr 1e-3,
 ``{name}_cnnFT_SCST_beam_{K}_CrD_{w}_B1_{b1}_B4_{b4}_run_{NN}``.
 ``--cnn_ckpt_path`` points at a converted encoder checkpoint (msgpack);
 without one the CNN trains from random init, with a warning. Training runs
-on the CUDA card.
+on the CUDA card, in one process: a launch with ``COMIC_COORDINATOR`` set
+is refused.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import os
 import traceback
 from typing import Callable, Tuple
 
+from . import refuse_distributed_launch
 from ..configuration import RUN_SEEDS, Config, load_config
 from ..training.scst import train_fn_scst
 from ..training.xe import train_fn
@@ -222,6 +224,7 @@ def stage_config(argv=None) -> Tuple[Callable, Config]:
     trains them: legacy overrides, the run's seed, the stage chain, and
     the saved experiment record when the stage's directory exists."""
     args = create_parser().parse_args(argv)
+    refuse_distributed_launch()
     if args.legacy:
         print("LEGACY mode enabled. Some arguments will be overridden.")
         apply_legacy_overrides(args)

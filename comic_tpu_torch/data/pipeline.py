@@ -6,13 +6,15 @@ A thread pool decodes and resizes images on the host into fixed 256x256
 uint8 batches, and a bounded queue prefetches batches ahead of the device.
 Training batches are bucketed by caption length and padded UP to their
 bucket's bound (comic_tpu's static shapes), drawn in comic_tpu's order from
-``random.Random(seed)``, so both packages see the same batches. The
-packed-HDF5 source, the VGG host modes and multi-process sharding wait for
-later slices.
+``random.Random(seed)``, so both packages see the same batches.
+Inference can also read pre-decoded images from a packed HDF5 dataset
+(``PackedImageSource``). The VGG host modes and multi-process sharding
+wait for later slices.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import random
 import threading
@@ -129,6 +131,107 @@ class _ImageLoaderPool:
         if self._pool is not None:
             self._pool.shutdown()
             self._pool = None
+
+
+def _path_suffix_match(query: str, packed: str) -> bool:
+    """True when one path's components are a trailing suffix of the other's:
+    'x.jpg' or '/data/coco/train2014/x.jpg' against a packed
+    'train2014/x.jpg', but not a directory mismatch such as
+    'val_subset/x.jpg'."""
+    q = [c for c in query.replace(os.sep, "/").split("/") if c]
+    f = [c for c in packed.split("/") if c]
+    return q[-len(f):] == f or f[-len(q):] == q
+
+
+class PackedImageSource:
+    """Fixed-shape uint8 images served from a packed HDF5 dataset
+    (comic_tpu's PackedImageSource; the pack is written by comic_tpu's
+    prepro ``serialise_everything``, reference prepro_base.py:288-360).
+
+    The pack holds every image already decoded and square-resized to the
+    loader's shape, so a batch is a copy out of the file instead of a JPEG
+    decode and resize per image. Same ``load(paths)`` contract as
+    ``_ImageLoaderPool``; rows are looked up by the relative filepath of
+    the pack's caption lines, falling back to the basename where the
+    directories agree (infer file lists may carry bare filenames).
+    ``h5py`` is imported here, on first use.
+    """
+
+    def __init__(self, h5_path: str, mode: str = "square",
+                 tf1_exact: bool = False):
+        import h5py
+
+        if mode != "square":
+            raise ValueError(
+                "packed_dataset images are square-resized at pack time; "
+                f"this config's encoder needs host resize mode '{mode}' "
+                "(vgg-family aspect preprocessing) — use the file loader.")
+        if tf1_exact:
+            raise ValueError(
+                "packed_dataset images were packed with the default host "
+                "bilinear; host_resize_tf1 would silently not apply — "
+                "unset it or use the file loader.")
+        self._f = h5py.File(h5_path, "r")
+        try:
+            images = self._f["images"]
+            if images.shape[1:] != (RESIZE_SIZE, RESIZE_SIZE, 3):
+                raise ValueError(
+                    f"packed images are {images.shape[1:]}, loader "
+                    f"contract is ({RESIZE_SIZE}, {RESIZE_SIZE}, 3) — "
+                    f"repack with image_size=({RESIZE_SIZE}, "
+                    f"{RESIZE_SIZE}).")
+            # filepath -> row from the '<row>,<filepath>,<caption>' lines
+            # (the first line of a filepath wins); `_by_base` keeps (row,
+            # filepath) candidates for the basename fallback. The index is
+            # built inside the try, so a malformed pack closes its handle.
+            self._index: dict = {}
+            self._by_base: dict = {}
+            for split in ("train", "valid", "test"):
+                for line in self._f[split][:]:
+                    line = (line.decode() if isinstance(line, bytes)
+                            else line)
+                    row_s, fpath = line.split(",", 2)[:2]
+                    if fpath in self._index:
+                        continue
+                    self._index[fpath] = int(row_s)
+                    self._by_base.setdefault(
+                        os.path.basename(fpath), []).append(
+                            (int(row_s), fpath))
+        except Exception:
+            self._f.close()
+            raise
+        self._images = images
+
+    def load(self, paths: Sequence[str]) -> np.ndarray:
+        out = np.empty((len(paths), RESIZE_SIZE, RESIZE_SIZE, 3), np.uint8)
+        for i, p in enumerate(paths):
+            row = self._index.get(p)
+            if row is None:
+                # the basename fallback only where the directories agree: a
+                # unique basename in another directory must refuse, not
+                # serve that image
+                cands = self._by_base.get(os.path.basename(p), ())
+                hits = [(r, f) for r, f in cands if _path_suffix_match(p, f)]
+                if len(hits) > 1:
+                    raise KeyError(
+                        f"{p!r} matches multiple packed images by basename "
+                        "— pass the relative filepath recorded in the "
+                        "pack's caption lines instead.")
+                if len(hits) == 1:
+                    row = hits[0][0]
+                elif cands:
+                    raise KeyError(
+                        f"{p!r} is not in the packed dataset; entries "
+                        "sharing its basename exist but in different "
+                        f"directories ({[f for _, f in cands]!r}) — "
+                        "refusing the basename fallback.")
+            if row is None:
+                raise KeyError(f"{p!r} is not in the packed dataset")
+            self._images.read_direct(out, np.s_[row], np.s_[i])
+        return out
+
+    def close(self):
+        self._f.close()
 
 
 def _prefetch(gen: Iterator, depth: int,
@@ -394,16 +497,14 @@ class ScstPipeline:
 
 class InferencePipeline:
     """Inference batches: (images_u8, filepaths). The file count must tile
-    the batch size (reference manager_image_caption.py:64-80)."""
+    the batch size (reference manager_image_caption.py:64-80); that is
+    checked before a loader is built. With ``packed_dataset`` set, images
+    come from the pack (``PackedImageSource``), keyed on the files'
+    relative paths."""
 
     def __init__(self, config: Config, files: Optional[List[str]] = None,
                  num_workers: int = 8):
         self.config = config
-        if config.get("packed_dataset"):
-            raise NotImplementedError(
-                "The packed-HDF5 image source is not yet ported to "
-                "comic_tpu_torch.")
-        _check_square_resize(config)
         if files is None:
             files = cap_io.infer_file_list(
                 config.dataset_dir, config.infer_set,
@@ -414,16 +515,25 @@ class InferencePipeline:
             raise ValueError(
                 f"Infer batch size {self.batch_size} must divide file "
                 f"count {len(files)}")
-        self.loader = _ImageLoaderPool(
-            num_workers, tf1_exact=bool(config.get("host_resize_tf1")))
+        packed = config.get("packed_dataset")
+        tf1_exact = bool(config.get("host_resize_tf1"))
+        if packed:
+            self.loader = PackedImageSource(
+                packed, mode=host_resize_mode(config, False),
+                tf1_exact=tf1_exact)
+        else:
+            _check_square_resize(config)
+            self.loader = _ImageLoaderPool(num_workers, tf1_exact=tf1_exact)
+        self._join_dataset_dir = not packed  # packed rows key on rel paths
         self._prefetchers: list = []
 
     def __iter__(self):
         def gen():
             for lo in range(0, len(self.files), self.batch_size):
                 chunk = self.files[lo: lo + self.batch_size]
-                paths = [cap_io.pjoin(self.config.dataset_dir, f)
-                         for f in chunk]
+                paths = ([cap_io.pjoin(self.config.dataset_dir, f)
+                          for f in chunk]
+                         if self._join_dataset_dir else chunk)
                 yield self.loader.load(paths), chunk
 
         return _prefetch(gen(), 4, registry=self._prefetchers)

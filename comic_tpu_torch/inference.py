@@ -1,17 +1,17 @@
-"""Inference entry point: checkpoint -> device decode -> caption JSON.
+"""Inference: checkpoint sweep -> decode on the card -> metrics.
 
-Counterpart of run_inference / make_serve_fn in comic_tpu/inference.py
-(reference src/infer_fn.py:78-184). The decode runs on the card: uint8
-batch -> eval preprocessing -> Inception-V1 -> beam search (or greedy).
-Artifacts are the same as comic_tpu's:
+Counterpart of comic_tpu/inference.py (reference src/infer_fn.py:78-315
+run_inference / evaluate_model / evaluate_captions, infer.py:90-138). The
+decode runs on the card: uint8 batch -> eval preprocessing -> Inception-V1
+-> beam search (or greedy); the scoring runs on the host. Artifacts are
+the same as comic_tpu's:
 
   - save dir  ``infer_{set}_beam_{B}_lpen_{L}`` under the experiment dir
   - caption JSON ``captions___{ckpt}.json`` (COCO submission format)
   - ``infer_speed.txt`` captions/sec line per run
   - attention-map pickle ``outputs___{ckpt}.pkl`` (optional)
-
-Metric scoring, ``evaluate_model``, ``sweep_checkpoints`` and the CLI wait
-for a later slice of the port.
+  - ``metric_scores.{txt,csv}`` and ``metric_scores_detailed_{n}.json``
+    through ``evaluation.coco_eval``
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import os
 import pickle
 import re
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +30,11 @@ from .configuration import Config
 from .data.pipeline import InferencePipeline
 from .data.preprocessing import preprocess_for
 from .decoding import beam_search, greedy_or_sample
-from .evaluation.coco_eval import write_caption_json
+from .evaluation.coco_eval import (
+    evaluate_captions,
+    write_caption_json,
+    write_score_artifacts,
+)
 from .models.captioner import build_model_spec, init_params, max_decode_steps
 from .tokenization import Vocabulary, ids_to_captions
 from .training import checkpoints as ckpt
@@ -222,3 +226,114 @@ def run_inference(config: Config, ckpt_path: str,
         if own_pipe:
             pipe.close()
     return save_dir, json_path
+
+
+def evaluate_model(config: Config, ckpt_path: str,
+                   annotations_file: Optional[str] = None,
+                   jar_dir: str = "", serve=None, pipe=None,
+                   run_infer: bool = True, get_metric_score: bool = True,
+                   save_attention: bool = False,
+                   require_ptb_jar: bool = False,
+                   device: DeviceLike = None) -> Optional[Dict[str, float]]:
+    """run_inference on ``device`` (None: the card), then metric scoring
+    and artifacts on the host (infer_fn.py:188-292).
+
+    An existing caption JSON is reused. The reference's ``run_inference``
+    / ``get_metric_score`` toggles (infer.py:46-50) select which halves
+    run. Returns the scores (None when scoring is off or there is no
+    annotation file)."""
+    ckpt_name = _ckpt_name(ckpt_path)
+    save_dir = pjoin(config.log_path, infer_dir_name(config))
+    json_path = pjoin(save_dir, f"captions___{ckpt_name}.json")
+    if not os.path.exists(json_path):
+        if not run_infer:
+            print(f"WARNING: no caption JSON for {ckpt_name} and "
+                  "run_inference=False; skipping.")
+            return None
+        _, json_path = run_inference(config, ckpt_path,
+                                     save_attention=save_attention,
+                                     serve=serve, pipe=pipe, device=device)
+
+    if not get_metric_score:
+        return None
+    if annotations_file is None:
+        annotations_file = config.get("annotations_file")
+    if not annotations_file or not os.path.exists(annotations_file):
+        print("WARNING: no annotation file; skipping metric scoring.")
+        return None
+    scores, img_to_eval = evaluate_captions(annotations_file, json_path,
+                                            jar_dir,
+                                            require_ptb_jar=require_ptb_jar)
+    write_score_artifacts(save_dir, ckpt_name, scores, img_to_eval)
+    return scores
+
+
+def sweep_checkpoints(config: Config,
+                      annotations_file: Optional[str] = None,
+                      jar_dir: str = "",
+                      checkpoints: str = "all",
+                      run_infer: bool = True,
+                      get_metric_score: bool = True,
+                      save_attention: bool = False,
+                      require_ptb_jar: bool = False,
+                      device: DeviceLike = None
+                      ) -> Dict[str, Dict[str, float]]:
+    """Evaluate the reference's checkpoint selection on ``device`` (None:
+    the card; only used when ``run_infer``): every compact checkpoint (the
+    last 12 when more than 20 exist, infer.py:90-97), or a comma-separated
+    list of checkpoint numbers (``--infer_checkpoints``,
+    infer.py:37-38,99-102). One serve fn and one pipeline serve every
+    checkpoint."""
+    if run_infer:
+        _refuse_multiprocess()  # before any checkpoint or pipeline work
+    if checkpoints and checkpoints != "all":
+        nums = [s for s in str(checkpoints).split(",") if s]
+        if not nums:
+            raise ValueError("`infer_checkpoints` must be 'all' or a "
+                             "comma-separated list of checkpoint numbers.")
+        names = [ckpt.COMPACT_PREFIX + n for n in nums]
+    else:
+        names = ckpt.select_eval_checkpoints(config.log_path)
+    if not names:
+        raise FileNotFoundError(
+            f"No compact checkpoints under {config.log_path}")
+
+    serve = pipe = None
+    if run_infer:
+        vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+        spec = build_model_spec(config, vocab)
+        serve = make_serve_fn(spec, config, max_decode_steps(config, vocab),
+                              collect_alignments=save_attention,
+                              device=device)
+        pipe = InferencePipeline(config)
+    results = {}
+    try:
+        for name in names:
+            # suffixless: load_compact resolves the file on disk
+            path = pjoin(config.log_path, name)
+            json_done = os.path.exists(
+                pjoin(config.log_path, infer_dir_name(config),
+                      f"captions___{name}.json"))
+            if run_infer and not json_done:
+                try:
+                    # a pruned or mistyped checkpoint number must not throw
+                    # away the checkpoints already evaluated; only the
+                    # checkpoint's resolution is forgiven, errors of the
+                    # dataset or the annotations propagate
+                    ckpt._resolve(path, ckpt.COMPACT_PREFIX)
+                except FileNotFoundError as e:
+                    print(f"WARNING: skipping {name}: {e}")
+                    continue
+            scores = evaluate_model(config, path, annotations_file,
+                                    jar_dir, serve=serve, pipe=pipe,
+                                    run_infer=run_infer,
+                                    get_metric_score=get_metric_score,
+                                    save_attention=save_attention,
+                                    require_ptb_jar=require_ptb_jar,
+                                    device=device)
+            if scores is not None:
+                results[name] = scores
+    finally:
+        if pipe is not None:
+            pipe.close()
+    return results

@@ -105,10 +105,12 @@ def test_large_chunks_read_keys_in_place(card, keys_dtype):
 
 
 @pytest.mark.parametrize("rows,beams,L,U,H", [(25, 3, 196, 512, 8),
+                                              (61, 3, 196, 512, 8),
                                               (3, 7, 33, 90, 3)])
 def test_kernels_are_deterministic(card, rows, beams, L, U, H):
     """The cluster reductions run in a fixed order: the same inputs give
-    bitwise the same outputs."""
+    bitwise the same outputs (also at the COCO-server batch of 61, where
+    the plan picks its cluster size for 183 queries)."""
     query, keys, mean, m2, vecs = _inputs(card, rows, beams, L, U,
                                           torch.bfloat16)
     runs = [k1.grouped_add_ln_attention(query, keys, mean, m2, *vecs,
@@ -341,3 +343,85 @@ def test_scst_step_on_card(card):
         torch.testing.assert_close(gpu[6][path], w, rtol=0,
                                    atol=1e-4 * w.abs().max().item(),
                                    msg="/".join(path))
+
+
+class _SeededImages:
+    """An inference loader of seeded uint8 images, one per file name's
+    number (the card's machine decodes no image files)."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def load(self, paths):
+        import re
+
+        import numpy as np
+
+        return np.stack([np.random.default_rng(
+            int(re.search(r"(\d+)\.jpg$", p).group(1))).integers(
+                0, 256, (256, 256, 3), dtype=np.uint8) for p in paths])
+
+    def close(self):
+        pass
+
+
+def test_sweep_on_card_matches_cpu(card, tmp_path, monkeypatch):
+    """sweep_checkpoints on one checkpoint at small widths (radix 16, LSTM
+    32, 2 heads, 64x64, beam 3, float32, TF32 off) on the card and on the
+    CPU: the caption JSON and metric_scores.txt are byte-identical, and
+    the card's sweep launched K1."""
+    import json
+    import os
+
+    import numpy as np
+
+    from comic_tpu_torch import inference as tinf
+    from comic_tpu_torch.configuration import Config
+    from comic_tpu_torch.data import pipeline
+    from comic_tpu_torch.models import captioner as tcap
+    from comic_tpu_torch.tokenization import Vocabulary
+    from comic_tpu_torch.training.checkpoints import save_compact
+
+    wtoi = {"<PAD>": -1, "<UNK>": 0, "<GO>": 1, "<EOS>": 2}
+    wtoi.update({f"w{i}": i + 3 for i in range(29)})
+    itow = {str(i): w for w, i in wtoi.items()}
+    data = tmp_path / "data"
+    (data / "captions").mkdir(parents=True)
+    names = [f"images/COCO_test_{i:012d}.jpg" for i in range(1, 5)]
+    (data / "captions" / "filenames_test.txt").write_text("\n".join(names))
+    rng = np.random.default_rng(6)
+    anns = [{"image_id": i, "caption": " ".join(
+        f"w{w}" for w in rng.integers(0, 29, 6))}
+        for i in range(1, 5) for _ in range(3)]
+    ann = tmp_path / "ann.json"
+    ann.write_text(json.dumps({"annotations": anns}))
+    kw = dict(token_type="radix", radix_base=16, rnn_size=32,
+              rnn_word_size=16, attn_num_heads=2, compute_dtype="float32",
+              cnn_input_size=(64, 64), batch_size_infer=2, infer_beam_size=3,
+              infer_max_length=10, dataset_dir=str(data), wtoi=wtoi,
+              itow=itow)
+    spec = tcap.build_model_spec(Config(**kw), Vocabulary(dict(wtoi)))
+    params = tcap.init_params(spec, generator=torch.Generator().manual_seed(7),
+                              device="cpu")
+    proj = params["decoder"]["output_projection"]
+    proj["kernel"] *= 3
+    proj["bias"][:2] = 2.0
+    monkeypatch.setattr(pipeline, "_ImageLoaderPool", _SeededImages)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        log = str(tmp_path / dev)
+        save_compact(log, 1, params)
+        config = Config(log_path=log, **kw)
+        n1 = k1.grouped_add_ln_attention.launches
+        scores = tinf.sweep_checkpoints(config, str(ann), device=dev)
+        launched = k1.grouped_add_ln_attention.launches - n1
+        save_dir = os.path.join(log, tinf.infer_dir_name(config))
+        out[dev] = (scores, launched, [
+            open(os.path.join(save_dir, f), "rb").read() for f in
+            ("captions___model_compact-1.json", "metric_scores.txt")])
+    assert out["cuda"][1] > 0 and out["cpu"][1] == 0
+    assert out["cuda"][2] == out["cpu"][2]
+    assert out["cuda"][0] == out["cpu"][0]
+    assert len(json.loads(out["cuda"][2][0])) == 4

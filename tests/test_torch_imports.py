@@ -42,6 +42,13 @@ TRAINING_MODULES = {
     "comic_tpu_torch.evaluation.cider_native",
     "comic_tpu_torch.evaluation.ngrams", "comic_tpu_torch.evaluation.ids"}
 
+# the checkpoint-evaluation slice's modules
+EVALUATION_MODULES = {
+    "comic_tpu_torch.cli.infer", "comic_tpu_torch.inference",
+    "comic_tpu_torch.evaluation.coco_eval", "comic_tpu_torch.evaluation.rouge",
+    "comic_tpu_torch.evaluation.tokenizer",
+    "comic_tpu_torch.evaluation.java_metrics"}
+
 
 def _clean_env():
     return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -54,23 +61,36 @@ def test_port_imports_no_jax_and_no_comic_tpu():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.split(" ", 1)
     names = set(names.split(","))
-    assert len(names) >= 34
+    assert len(names) >= 38
     assert TRAINING_MODULES <= names, TRAINING_MODULES - names
+    assert EVALUATION_MODULES <= names, EVALUATION_MODULES - names
     assert bad.strip() == "[]"
 
 
-def test_training_cli_runs_without_jax():
-    """``python -m comic_tpu_torch.cli.train --help`` with JAX and
-    comic_tpu made unimportable."""
+def _help_without_jax(cli):
+    """``python -m comic_tpu_torch.cli.<cli> --help`` with JAX and comic_tpu
+    made unimportable, and h5py too (the card's machine has none; the
+    packed-HDF5 source imports it when it opens a pack)."""
     block = ("import sys; sys.modules.update(dict.fromkeys(['jax', 'flax', "
-             "'optax', 'comic_tpu'])); import runpy; sys.argv = ['train', "
-             "'--help']; runpy.run_module('comic_tpu_torch.cli.train', "
+             "'optax', 'comic_tpu', 'h5py'])); import runpy; "
+             f"sys.argv = ['{cli}', '--help']; "
+             f"runpy.run_module('comic_tpu_torch.cli.{cli}', "
              "run_name='__main__')")
     out = subprocess.run([sys.executable, "-c", block], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "--train_mode" in out.stdout and "--cnn_ckpt_path" in out.stdout
+    return out.stdout
+
+
+def test_training_cli_runs_without_jax():
+    out = _help_without_jax("train")
+    assert "--train_mode" in out and "--cnn_ckpt_path" in out
+
+
+def test_infer_cli_runs_without_jax():
+    out = _help_without_jax("infer")
+    assert "--infer_checkpoints_dir" in out and "--require_ptb_jar" in out
 
 
 @pytest.fixture
