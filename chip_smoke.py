@@ -59,12 +59,23 @@ Phases (any failure raises and exits non-zero):
      decode and scoring seconds printed per checkpoint;
  13. eval-agree: sweep_checkpoints over one checkpoint at batch 2, beam 3,
      float32, TF32 off, 4 images, on the card and on the CPU: the caption
-     JSON and metric_scores.txt byte-identical.
+     JSON and metric_scores.txt byte-identical;
+ 14. overfit-gate: tests/test_overfit_gate.py at COMIC-256 width (bf16):
+     the port's synthetic fixture (10 solid-colour images, the test split
+     mirroring train) in memory; the decoder stage restored in mode 'cnn'
+     from the smoke weights' CNN written under slim names and converted by
+     convert_slim_tree; GATE_XE_STEPS XE steps of batch 5 (dropout off,
+     Adam epsilon 1e-6, the CNN frozen); the infer CLI at beam 3 must score
+     CIDEr > 5 and BLEU-4 > 0.5; 20 SCST steps at beam 3 must keep a finite
+     |reward| < 5 and CIDEr > 4. K1 launches in the sweeps and the SCST
+     rollouts, K2 in the eval passes and the greedy baselines, neither in
+     a train step.
 
 Phase 3 holds the kernels at the serving shapes, at K2's eval-perplexity
 batch, at the SCST rollout's shapes (K1 at batch 10, beam 7; K2 at 10
-rows for the greedy baseline) and K1 at the COCO server split's batch of
-61 (also checked bitwise repeatable). Phases 4 and 5 also time one steady batch
+rows for the greedy baseline), K1 at the COCO server split's batch of
+61 and both at the overfit gate's batch of 5 (K1 at beam 3; these two
+also checked bitwise repeatable). Phases 4 and 5 also time one steady batch
 and profile one more, phases 7 and 8 profile one more train step
 (torch.profiler; the per-kernel tables go to smoke_out/profile_*.txt).
 
@@ -74,6 +85,8 @@ error and times; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -109,6 +122,16 @@ SCST_B, SCST_K, SCST_STEPS, SCST_REFS = 10, 7, 20, 5
 # last checkpoint may sit above that after its first
 COCO_B, EVAL_TEST_N, EVAL_COCO_N, EVAL_REFS = 61, 100, 122, 5
 SWEEP_MEMORY_SLACK = 8 * 2**20
+# the overfit gate (tests/test_overfit_gate.py's recipe at COMIC-256 width):
+# its batch, beam and decode cap; the XE steps and peak learning rate that
+# reach the JAX gate's thresholds at this width (PERF.md); the SCST steps;
+# and how many times the train pipeline lists the fixture's 10 records an
+# epoch (train_fn saves and runs an eval pass once an epoch: every 100
+# steps instead of every 2). Each image still comes equally often, but an
+# epoch shuffles 500 rows, so a batch of 5 may hold an image twice
+GATE_B, GATE_BEAM, GATE_MAX_LEN = 5, 3, 20
+GATE_XE_STEPS, GATE_XE_LR = 300, 1e-3
+GATE_SCST_STEPS, GATE_REPEAT = 20, 50
 # the decoder stage's mean XE log-perplexity over its last 3 steps must sit
 # this far (nats) below that of its first 3: about half the drop measured
 # on an H100 80GB HBM3 at 700 W (6.09 -> 5.25, 0.84 nats)
@@ -276,14 +299,18 @@ def check_kernels():
     # batch of the training phases (one query per caption row), both at
     # the SCST rollout's batch (K1 for the beam-7 search, K2 for the greedy
     # baseline), and K1 at the COCO server split's forced batch of 61 (the
-    # eval sweep; K2's rows there are eval_shape's 61)
+    # eval sweep; K2's rows there are eval_shape's 61), and both at the
+    # overfit gate's batch of 5 (its sweeps and SCST rollouts at beam 3, its
+    # eval passes and greedy baselines)
     for name, beams, rows, tag in (
             ("grouped_add_ln_attention", K, B, "main"),
             ("fused_add_ln_attention", None, B, "main"),
             ("fused_add_ln_attention", None, EVAL_B, "eval_shape"),
             ("grouped_add_ln_attention", SCST_K, SCST_B, "scst_shape"),
             ("fused_add_ln_attention", None, SCST_B, "scst_shape"),
-            ("grouped_add_ln_attention", K, COCO_B, "coco_shape")):
+            ("grouped_add_ln_attention", K, COCO_B, "coco_shape"),
+            ("grouped_add_ln_attention", GATE_BEAM, GATE_B, "gate_shape"),
+            ("fused_add_ln_attention", None, GATE_B, "gate_shape")):
         worst = 0.0
         for keys_dtype in (torch.float32, torch.bfloat16):
             query, keys, mean, m2, vecs = kernel_inputs(keys_dtype, rows,
@@ -338,7 +365,7 @@ def check_kernels():
                                      f"the rounding slack")
             if not (torch.isfinite(ctx).all() and torch.isfinite(align).all()):
                 raise AssertionError(f"{name} produced non-finite values")
-            if tag == "coco_shape":  # a new row count for the plan
+            if tag in ("coco_shape", "gate_shape"):  # new plan row counts
                 again = kern()
                 if not (torch.equal(again[0], ctx)
                         and torch.equal(again[1], align)):
@@ -1164,10 +1191,14 @@ def scst_agree_phase(ckpt_state):
 
 
 class InferImages:
-    """Within a ``with`` block, every InferencePipeline reads MemoryImages
-    in place of image files (it builds its loader from the pipeline
-    module's ``_ImageLoaderPool`` when it is constructed). ``loaders``
-    holds each loader built."""
+    """Within a ``with`` block, every InferencePipeline reads in-memory
+    images (``make_loader()``, MemoryImages by default) in place of image
+    files (it builds its loader from the pipeline module's
+    ``_ImageLoaderPool`` when it is constructed). ``loaders`` holds each
+    loader built."""
+
+    def __init__(self, make_loader=None):
+        self.make_loader = make_loader or MemoryImages
 
     def __enter__(self):
         from comic_tpu_torch.data import pipeline
@@ -1176,7 +1207,7 @@ class InferImages:
         self.loaders = []
 
         def build(*_, **__):
-            self.loaders.append(MemoryImages())
+            self.loaders.append(self.make_loader())
             return self.loaders[-1]
 
         pipeline._ImageLoaderPool = build
@@ -1459,9 +1490,251 @@ def eval_agree_phase(ckpt_path):
                              "CPU's")
 
 
+class FixtureImages:
+    """The pipelines' image loader for the overfit gate: the synthetic
+    fixture's own arrays, looked up by the file name of each path the
+    pipeline asks for (no JPEG is written or decoded). Counts its loads."""
+
+    def __init__(self, images):
+        self.images = {os.path.basename(k): v for k, v in images.items()}
+        self.loads = 0
+
+    def load(self, paths):
+        import numpy as np
+
+        self.loads += 1
+        return np.stack([self.images[os.path.basename(p)] for p in paths])
+
+    def close(self):
+        pass
+
+
+def gate_cnn_checkpoint(path):
+    """The decoder stage's pretrained CNN, made as a user makes it from a
+    slim ImageNet checkpoint, minus the TF file reader: the smoke weights'
+    Inception-V1 under slim names (with the classifier head a slim release
+    carries), through slim_reader_to_tree and convert_slim_tree onto the
+    port's encoder template, saved by save_cnn_checkpoint. -> the CNN tree
+    in comic_tpu's layout"""
+    import numpy as np
+    import torch
+
+    from comic_tpu_torch import params as bridge
+    from comic_tpu_torch.models.captioner import build_model_spec
+    from comic_tpu_torch.models.encoders import get_encoder
+    from comic_tpu_torch.tokenization import Vocabulary
+    from comic_tpu_torch.training.checkpoints import save_cnn_checkpoint
+    from comic_tpu_torch.utils import tf_checkpoint as tfc
+
+    config = smoke_config(3, B, "bfloat16")
+    spec = build_model_spec(config, Vocabulary.from_str_itow(config.wtoi,
+                                                             config.itow))
+    cnn = bridge.to_jax_tree(smoke_weights(spec)["encoder"]["cnn"])
+    root = tfc.ROOT_SCOPES["inception_v1"]
+    slim = {f"{root}/{k}": v for k, v in tfc._flatten_leaves(cnn).items()}
+    slim[f"{root}/Logits/Conv2d_0c_1x1/weights"] = np.zeros(
+        (1, 1, 1024, 1001), np.float32)
+    slim[f"{root}/Logits/Conv2d_0c_1x1/biases"] = np.zeros(1001, np.float32)
+    template = bridge.to_jax_tree(get_encoder("inception_v1").init(
+        torch.Generator().manual_seed(0)))
+    tree = tfc.convert_slim_tree(tfc.slim_reader_to_tree(slim, root),
+                                 template)
+    save_cnn_checkpoint(path, bridge.from_jax_tree(tree, device="cpu"))
+    return cnn
+
+
+def overfit_gate_phase(kernels):
+    """Phase overfit-gate: tests/test_overfit_gate.py at COMIC-256 width
+    (bf16, radix tokens) on the card. The port's synthetic fixture (10
+    solid-colour images of one caption each, the test split mirroring
+    train) drawn in memory, its caption files written; the decoder stage
+    restored in mode 'cnn' from a slim-converted CNN (gate_cnn_checkpoint);
+    train_fn for GATE_XE_STEPS XE steps with the JAX gate's overrides
+    (batch 5, dropout off, attn_keep_prob 1, Adam epsilon 1e-6, the CNN
+    frozen, cosine lr GATE_XE_LR -> 1e-4); the infer CLI at beam 3,
+    infer_max_length 20 over every saved checkpoint; then 20 SCST steps at beam 3 (lr 2e-5)
+    and the infer CLI again. Thresholds: the JAX gate's. K1 and K2 must
+    launch in the gate and never in a train step. -> (launches per kernel,
+    launches per kernel by part)"""
+    import numpy as np
+    import torch
+
+    from comic_tpu_torch.cli import infer
+    from comic_tpu_torch.configuration import Config
+    from comic_tpu_torch.data import captions as cap_io
+    from comic_tpu_torch.data.pipeline import ScstPipeline, TrainPipeline
+    from comic_tpu_torch.data.synthetic import (draw_synthetic_dataset,
+                                                write_caption_artifacts)
+    from comic_tpu_torch.training import scst
+    from comic_tpu_torch.training.msgpack_codec import unpackb
+    from comic_tpu_torch.training.xe import train_fn
+    from comic_tpu_torch.utils.tf_checkpoint import _flatten_leaves
+
+    tag = "overfit-gate"
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT, "gate")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "data")
+    data = draw_synthetic_dataset(
+        num_train=10, num_valid=GATE_B, num_test=GATE_B,
+        captions_per_image=1, test_mirrors_train=True, distinct_images=True)
+    write_caption_artifacts(data_dir, data)
+    ann = os.path.join(data_dir, "captions", "annotations_test.json")
+    cnn_path = os.path.join(root, "inception_v1.ckpt.msgpack")
+    converted = _flatten_leaves(gate_cnn_checkpoint(cnn_path))
+    vocab = cap_io.load_vocab(data_dir, "synth_{}")
+    names = [k.__name__ for k in kernels]
+    parts = {}
+
+    def config(log_path, **over):
+        kw = dict(dataset_dir=data_dir, dataset_file_pattern="synth_{}",
+                  batch_size_train=GATE_B, batch_size_eval=GATE_B,
+                  max_epoch=10_000, compute_dtype="bfloat16",
+                  lr_start=GATE_XE_LR, lr_end=1e-4, adam_epsilon=1e-6,
+                  dropout_rnn_in=0.0, dropout_rnn_out=0.0, attn_keep_prob=1.0,
+                  freeze_scopes="encoder/cnn", log_path=log_path,
+                  num_logs_per_epoch=1, rand_seed=0)
+        kw.update(over)
+        return Config(**kw)
+
+    def sweep(part, exp, checkpoints):
+        """The infer CLI over ``exp``'s checkpoints -> scores by name."""
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with InferImages(lambda: FixtureImages(data.images)):
+            results = infer.main([
+                "--infer_checkpoints_dir", exp,
+                "--infer_checkpoints", checkpoints,
+                "--dataset_dir", data_dir, "--annotations_file", ann,
+                "--infer_set", "test", "--batch_size_infer", str(GATE_B),
+                "--infer_beam_size", str(GATE_BEAM),
+                "--infer_max_length", str(GATE_MAX_LEN)])
+        parts[part] = [k.launches for k in kernels]
+        if not parts[part][0] > 0 or parts[part][1]:
+            raise AssertionError(f"{tag} {part}: launches {parts[part]}, "
+                                 "expected K1 only")
+        return results, time.perf_counter() - t0
+
+    # XE: the decoder stage from the slim-converted CNN
+    xe_dir = os.path.join(root, "xe")
+    cfg = config(xe_dir, checkpoint_path=cnn_path)
+    records = cap_io.read_caption_file(
+        cap_io.caption_file_path(data_dir, "synth_{}", "train"))
+    train_pipe = TrainPipeline(cfg, vocab, "train",
+                               records=records * GATE_REPEAT,
+                               loader=FixtureImages(data.images))
+    eval_pipe = CountedEval(TrainPipeline(
+        cfg, vocab, "valid", loader=FixtureImages(data.images)), kernels)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            metrics = train_fn(cfg, max_steps_override=GATE_XE_STEPS,
+                               train_pipe=train_pipe, eval_pipe=eval_pipe)
+    finally:
+        sys.stdout.write(log.getvalue())
+    xe_wall = time.perf_counter() - t0
+    modes = re.findall(r"INFO: restore mode = (\w+)", log.getvalue())
+    total = [k.launches for k in kernels]
+    parts["xe_eval"] = [sum(p[i] for p in eval_pipe.passes)
+                        for i in range(len(kernels))]
+    train_launches = [t - e for t, e in zip(total, parts["xe_eval"])]
+    if any(train_launches) or not parts["xe_eval"][1] > 0:
+        raise AssertionError(f"{tag}: XE launches in the train steps "
+                             f"{train_launches}, in the eval passes "
+                             f"{parts['xe_eval']}")
+    # the CNN is frozen, so the last checkpoint holds the converted CNN
+    last = os.path.join(xe_dir, f"model_compact-{GATE_XE_STEPS}.msgpack")
+    with open(last, "rb") as f:
+        saved = _flatten_leaves(unpackb(f.read())["encoder"]["cnn"])
+    if modes != ["cnn"] or saved.keys() != converted.keys() or \
+            not all(np.array_equal(saved[k], v) for k, v in converted.items()):
+        raise AssertionError(f"{tag}: the decoder stage restored in modes "
+                             f"{modes}, expected ['cnn'], or its CNN is "
+                             "not the slim-converted one")
+    with open(os.path.join(xe_dir, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    logs = [e for e in events if "examples_per_sec" in e]
+    # a log every GATE_REPEAT * 10 / GATE_B steps; the first interval holds
+    # the first steps' warm-up, each later one a save and an eval pass
+    xe_ms = [GATE_B / e["examples_per_sec"] * 1e3
+             for e in logs[1:]] or [xe_wall / GATE_XE_STEPS * 1e3]
+    xe_sweep, xe_sweep_s = sweep("xe_sweep", xe_dir, "all")
+    final = xe_sweep[f"model_compact-{GATE_XE_STEPS}"]
+    curve = "; ".join(f"{n.split('-')[-1]}: CIDEr {r['CIDEr']:.3f} BLEU-4 "
+                      f"{r['Bleu_4']:.3f}" for n, r in xe_sweep.items())
+    print(f"{tag} XE: {GATE_XE_STEPS} steps of batch {GATE_B} at lr "
+          f"{GATE_XE_LR:g} in {xe_wall:.2f} s through train_fn "
+          f"({xe_wall / GATE_XE_STEPS * 1e3:.2f} ms a step, restore, "
+          f"{len(logs)} saves and eval passes included; "
+          f"{statistics.median(xe_ms):.2f} ms median over each "
+          f"{GATE_REPEAT * 10 // GATE_B}-step interval after the first, "
+          f"{min(xe_ms):.2f}-{max(xe_ms):.2f}); restore mode {modes[0]}, "
+          f"the last checkpoint's CNN bit for bit the slim-converted one "
+          f"({len(converted)} leaves); final log-ppl "
+          f"{metrics['log_ppl']:.4f} (tol < 0.6), total loss "
+          f"{metrics['total_loss']:.4f}; launches in the train steps "
+          f"{dict(zip(names, train_launches))}, in the eval passes "
+          f"{dict(zip(names, parts['xe_eval']))}")
+    print(f"{tag} XE sweep ({len(xe_sweep)} checkpoints in {xe_sweep_s:.2f} "
+          f"s through cli.infer.main, beam {GATE_BEAM}; launches "
+          f"{dict(zip(names, parts['xe_sweep']))}): {curve}")
+    if not (np.isfinite(metrics["total_loss"]) and metrics["log_ppl"] < 0.6
+            and final["CIDEr"] > 5.0 and final["Bleu_4"] > 0.5):
+        raise AssertionError(f"{tag}: XE did not memorize: {metrics}, "
+                             f"{final}")
+
+    # SCST from the XE checkpoint
+    scst_dir = os.path.join(root, "scst")
+    scfg = config(scst_dir, checkpoint_path=xe_dir, lr_start=2e-5,
+                  lr_end=2e-5, scst_beam_size=GATE_BEAM)
+    pipe = ScstPipeline(scfg, vocab, loader=FixtureImages(data.images))
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with ScstProbe(kernels) as probe:
+        sm = scst.train_fn_scst(scfg, max_steps_override=GATE_SCST_STEPS,
+                                pipe=pipe)
+    scst_wall = time.perf_counter() - t0
+    parts["scst"] = [k.launches for k in kernels]
+    if not (len(probe.rollouts) == len(probe.steps) == GATE_SCST_STEPS
+            and all(all(n > 0 for n in r) for r in probe.rollouts)
+            and not any(any(st) for st in probe.steps)):
+        raise AssertionError(f"{tag}: SCST launches per rollout "
+                             f"{probe.rollouts}, per train step {probe.steps}")
+    scst_ms = [(b - a) * 1e3 for a, b in zip(probe.ends[2:], probe.ends[3:])]
+    scst_sweep, scst_sweep_s = sweep("scst_sweep", scst_dir,
+                                     str(GATE_SCST_STEPS))
+    after = scst_sweep[f"model_compact-{GATE_SCST_STEPS}"]
+    per_rollout = {n: sorted({r[i] for r in probe.rollouts})
+                   for i, n in enumerate(names)}
+    print(f"{tag} SCST: {GATE_SCST_STEPS} steps of {GATE_B} images x beam "
+          f"{GATE_BEAM} in {scst_wall:.2f} s through train_fn_scst "
+          f"({statistics.median(scst_ms):.2f} ms a step median, "
+          f"{min(scst_ms):.2f}-{max(scst_ms):.2f}); reward {sm['reward']:.6f}"
+          f" (tol |r| < 5), SCST loss {sm['scst_loss']:.6f}; launches per "
+          f"rollout {per_rollout}, in the train steps 0; after: CIDEr "
+          f"{after['CIDEr']:.3f} (tol > 4), BLEU-4 {after['Bleu_4']:.3f} "
+          f"({scst_sweep_s:.2f} s through cli.infer.main; launches "
+          f"{dict(zip(names, parts['scst_sweep']))})")
+    if not (np.isfinite(sm["reward"]) and abs(sm["reward"]) < 5.0
+            and np.isfinite(sm["scst_loss"]) and after["CIDEr"] > 4.0):
+        raise AssertionError(f"{tag}: SCST broke the gate: {sm}, {after}")
+    launches = [sum(v[i] for v in parts.values())
+                for i in range(len(kernels))]
+    print(f"{tag}: the phase in {time.perf_counter() - t_phase:.2f} s; "
+          f"launches {dict(zip(names, launches))}: " + "; ".join(
+              f"{p} {dict(zip(names, v))}" for p, v in parts.items()))
+    return launches, parts
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
     sys.path.insert(0, ROOT)
@@ -1494,6 +1767,7 @@ def main():
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}{variant}: {ln.strip()}")
 
+    kernels = [k1.grouped_add_ln_attention, k2.fused_add_ln_attention]
     records = check_kernels()
 
     shutil.rmtree(OUT, ignore_errors=True)
@@ -1511,7 +1785,6 @@ def main():
 
     # training: the decoder stage from the smoke weights' compact
     # checkpoint, then cnn_finetune from the decoder stage's directory
-    kernels = [k1.grouped_add_ln_attention, k2.fused_add_ln_attention]
     dec_eval, dec = train_phase("decoder", DECODER_STEPS, ckpt_path, kernels)
     if not dec["tail"] < dec["head"] - LOSS_DROP:
         raise AssertionError(f"train-decoder: the XE loss did not fall by "
@@ -1540,6 +1813,16 @@ def main():
         sweep["coco_valid_beam3"][0]
     eval_agree_phase(ckpt_path)
 
+    # the overfit gate: caption quality after training, at full width
+    gate, gate_parts = overfit_gate_phase(kernels)
+    for i, k in enumerate(kernels):
+        records[k.__name__]["launches"] += gate[i]
+        records[k.__name__]["gate_shape"]["launches"] = gate[i]
+        records[k.__name__]["overfit_gate_launches"] = {
+            part: v[i] for part, v in gate_parts.items()}
+
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ with the CNN frozen; ``cnn_finetune`` restores the decoder run (lr 1e-3,
 10 epochs, nothing frozen); ``scst`` restores the cnn_finetune run (batch
 10, beam ``--scst_beam_size``, lr 1e-3, 10 epochs, the CNN frozen) into
 ``{name}_cnnFT_SCST_beam_{K}_CrD_{w}_B1_{b1}_B4_{b4}_run_{NN}``.
-``--cnn_ckpt_path`` points at a converted encoder checkpoint (msgpack);
+``--cnn_ckpt_path`` points at the pretrained CNN: a converted encoder
+checkpoint (msgpack, e.g. from utils/net_params.maybe_get_ckpt_file) or a
+slim TF ImageNet checkpoint, converted in memory (TensorFlow needed);
 without one the CNN trains from random init, with a warning. Training runs
 on the CUDA card, in one process: a launch with ``COMIC_COORDINATOR`` set
 is refused.
@@ -85,7 +87,8 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_path", type=str, default=None)
     p.add_argument("--checkpoint_exclude_scopes", type=str, default="")
     p.add_argument("--cnn_ckpt_path", type=str, default=None,
-                   help="Converted pretrained CNN checkpoint (msgpack).")
+                   help="Pretrained CNN checkpoint: converted (msgpack) "
+                        "or a slim TF checkpoint (needs TensorFlow).")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--run", type=int, default=1)

@@ -151,20 +151,27 @@ def resize_bilinear_tf1_np(img: np.ndarray, out_h: int, out_w: int
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
-def load_and_resize_host(path: str, size: int = RESIZE_SIZE,
-                         tf1_exact: bool = False) -> np.ndarray:
-    """Decode + square bilinear resize to (size, size, 3) uint8 RGB (the
-    inception-style host path)."""
-    img = decode_image_host(path)
+def _resize_host(img: np.ndarray, out_h: int, out_w: int,
+                 tf1_exact: bool = False) -> np.ndarray:
+    """Bilinear resize of a uint8 RGB image to (out_h, out_w, 3) (cv2, PIL
+    fallback), or TF1's exact rule."""
     if tf1_exact:
-        return resize_bilinear_tf1_np(img, size, size)
+        return resize_bilinear_tf1_np(img, out_h, out_w)
     try:
         import cv2
 
-        return cv2.resize(img, (size, size), interpolation=cv2.INTER_LINEAR)
+        return cv2.resize(img, (out_w, out_h),
+                          interpolation=cv2.INTER_LINEAR)
     except ImportError:
         from PIL import Image
 
         return np.asarray(
-            Image.fromarray(img).resize((size, size), Image.BILINEAR),
+            Image.fromarray(img).resize((out_w, out_h), Image.BILINEAR),
             np.uint8)
+
+
+def load_and_resize_host(path: str, size: int = RESIZE_SIZE,
+                         tf1_exact: bool = False) -> np.ndarray:
+    """Decode + square bilinear resize to (size, size, 3) uint8 RGB (the
+    inception-style host path)."""
+    return _resize_host(decode_image_host(path), size, size, tf1_exact)

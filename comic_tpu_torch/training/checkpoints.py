@@ -13,8 +13,12 @@ by the port's own codec, tensors in comic_tpu's layout):
     than 20 exist;
   - the 3-way restore: full resume / model only (minus excluded scopes) /
     CNN only into the encoder subtree.
-Orbax directories and reference TF checkpoints are recognized on disk but
-their restores (and the Orbax saver) are not yet ported.
+The loaders dispatch on the artifact found on disk: a msgpack file, an
+Orbax directory (``<name>.orbax/``, read with tensorstore,
+``orbax_store.py``; ``make_saver("orbax")`` writes them), or a reference
+TF checkpoint (``<name>.index``: a published COMIC model or a slim
+ImageNet CNN, converted in memory by ``utils/tf_checkpoint.py``, which
+needs TensorFlow).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import numpy as np
 
 from .. import params as bridge
 from ..models.layers import tree_leaves
+from ..utils.natural_sort import natural_key
+from . import orbax_store
 from .msgpack_codec import packb, unpackb
 from .optimizer import _normalize_scopes, path_string
 
@@ -40,15 +46,6 @@ COMPACT_PREFIX = "model_compact-"
 _SUFFIX = ".msgpack"
 _ORBAX_SUFFIX = ".orbax"
 _TF_SUFFIX = ".index"  # TF V2-format checkpoints (reference model_compact-N)
-
-_DIGITS = re.compile(r"(\d+)")
-
-
-def _natural_key(s: str):
-    """Human-order sort key: digit runs compare numerically."""
-    return [int(part) if part.isdigit() else part.lower()
-            for part in _DIGITS.split(str(s))]
-
 
 def list_checkpoints(directory: str, prefix: str = COMPACT_PREFIX
                      ) -> List[str]:
@@ -61,7 +58,13 @@ def list_checkpoints(directory: str, prefix: str = COMPACT_PREFIX
                      + f"|{re.escape(_TF_SUFFIX)})$")
     names = {f[: f.rfind(".")] for f in os.listdir(directory)
              if pat.match(f)}
-    return sorted(names, key=_natural_key)
+    return sorted(names, key=natural_key)
+
+
+def checkpoint_step(name: str) -> int:
+    """The step a checkpoint name ends in (-1 when none)."""
+    m = re.search(r"(\d+)$", name)
+    return int(m.group(1)) if m else -1
 
 
 def select_eval_checkpoints(directory: str, cap: int = 12,
@@ -110,21 +113,46 @@ def _check_like(restored, template, path: str = "") -> None:
 
 
 def load_compact(path_or_dir: str, template: Params) -> Params:
-    """Load a compact msgpack checkpoint into the structure of
-    ``template`` (a parameter tree of the port), on the template's device.
+    """Load a compact checkpoint into the structure of ``template`` (a
+    parameter tree of the port), on the template's device: a msgpack file,
+    an Orbax directory, or a reference TF ``model_compact-N`` checkpoint
+    (converted in memory: the parity path for published COMIC models).
     Raises ValueError when keys or shapes differ."""
     path = _resolve(path_or_dir, COMPACT_PREFIX)
-    if path.endswith(_TF_SUFFIX) or path.endswith(_ORBAX_SUFFIX):
-        raise NotImplementedError(
-            f"{path}: restoring TF-format and Orbax checkpoints is not yet "
-            "ported to comic_tpu_torch; convert it to a compact msgpack "
-            "file with comic_tpu first.")
-    with open(path, "rb") as f:
-        tree = unpackb(f.read())
+    if path.endswith(_TF_SUFFIX):
+        tree = _tf_reference_restore(path[: -len(_TF_SUFFIX)], template)
+    elif path.endswith(_ORBAX_SUFFIX):
+        tree = orbax_store.read_tree(path)
+    else:
+        with open(path, "rb") as f:
+            tree = unpackb(f.read())
     device = tree_leaves(template)[0].device
     state = bridge.from_jax_tree(tree, device=device)
     _check_like(state, template)
     return state
+
+
+def _tf_reference_restore(tf_path: str, template: Params) -> Params:
+    """A reference TF model checkpoint -> the full parameter tree in
+    comic_tpu's layout, keyed and shaped as ``template``."""
+    from ..utils import tf_checkpoint as tfc
+
+    if not (isinstance(template, dict) and "encoder" in template
+            and "decoder" in template):
+        raise ValueError(
+            f"{tf_path} is a TF checkpoint, but the restore target is not "
+            "a full model params tree — convert it explicitly "
+            "(utils.tf_checkpoint) instead.")
+    # the names alone first: a slim CNN checkpoint (no Model/ scope) goes
+    # to restore_model's CNN branch without reading its tensors here
+    if not any(n.startswith("Model/")
+               for n in tfc.reference_checkpoint_names(tf_path)):
+        raise ValueError(
+            f"No `Model/` variables in {tf_path} — not a reference "
+            "trained-model checkpoint.")
+    return tfc.convert_reference_tree(
+        tfc.load_reference_checkpoint_vars(tf_path),
+        bridge.to_jax_tree(template))
 
 
 def _atomic_write(path: str, data: bytes) -> None:
@@ -197,9 +225,11 @@ class AsyncCheckpointer:
     the state to the host (synchronous, so the next step cannot change it
     under the copy); encoding, file IO and retention run on a worker
     thread. A worker's exception surfaces on the next save() or wait().
-    Call close() (or wait()) before reading the files."""
+    Call close() (or wait()) before reading the files. ``write`` writes
+    one pair and applies retention (msgpack files by default)."""
 
-    def __init__(self):
+    def __init__(self, write=_write_checkpoint):
+        self._write = write
         self._q: "queue.Queue" = queue.Queue(maxsize=2)
         self._err: Optional[BaseException] = None
         self._closed = False
@@ -213,7 +243,7 @@ class AsyncCheckpointer:
                 self._q.task_done()
                 return
             try:
-                _write_checkpoint(**job)
+                self._write(**job)
             except BaseException as e:  # surfaced on the next call
                 self._err = e
             finally:
@@ -248,30 +278,51 @@ class AsyncCheckpointer:
         self._thread.join()
 
 
+def _write_orbax_checkpoint(directory: str, step: int, params: Params,
+                            opt_state: Optional[Params], max_saves: int
+                            ) -> Tuple[str, str]:
+    """Both checkpoints as Orbax directories, with comic_tpu's
+    OrbaxCheckpointer's retention: prune first, keeping one slot for the
+    pair about to land (compact max(max_saves - 1, 1), full 1)."""
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    _prune(directory, COMPACT_PREFIX, max(max_saves - 1, 1))
+    _prune(directory, FULL_PREFIX, 1)
+    compact = orbax_store.write_tree(os.path.join(
+        directory, f"{COMPACT_PREFIX}{step}{_ORBAX_SUFFIX}"), params)
+    state = {"params": params, "step": int(step)}
+    if opt_state is not None:
+        state["opt_state"] = opt_state
+    full = orbax_store.write_tree(os.path.join(
+        directory, f"{FULL_PREFIX}{step}{_ORBAX_SUFFIX}"), state)
+    return full, compact
+
+
 def make_saver(backend: Optional[str] = "msgpack") -> AsyncCheckpointer:
-    """Training-driver saver factory (config.checkpoint_backend)."""
+    """Training-driver saver factory (config.checkpoint_backend): msgpack
+    files, or Orbax directories (``model[_compact]-<step>.orbax/``, which
+    comic_tpu's OrbaxCheckpointer reads back), both written on a worker
+    thread with the same save()/wait()/close()."""
     if backend == "orbax":
-        raise NotImplementedError(
-            "The Orbax checkpoint backend is not yet ported to "
-            "comic_tpu_torch; use checkpoint_backend='msgpack'.")
+        return AsyncCheckpointer(_write_orbax_checkpoint)
     if backend in ("msgpack", None, "none"):
         return AsyncCheckpointer()
     raise ValueError(f"Unknown checkpoint backend: {backend!r}")
 
 
-def _refuse_unported(path: str) -> None:
-    if path.endswith(_TF_SUFFIX) or path.endswith(_ORBAX_SUFFIX):
-        raise NotImplementedError(
-            f"{path}: restoring TF-format and Orbax checkpoints is not yet "
-            "ported to comic_tpu_torch; convert it to msgpack with "
-            "comic_tpu first.")
-
-
 def load_full(path_or_dir: str) -> Dict[str, Any]:
     """The decoded full checkpoint {"params", "step", "opt_state"} as host
-    trees in comic_tpu's layout."""
+    trees in comic_tpu's layout, from a msgpack file or an Orbax
+    directory."""
     path = _resolve(path_or_dir, FULL_PREFIX)
-    _refuse_unported(path)
+    if path.endswith(_TF_SUFFIX):
+        raise ValueError(
+            f"{path} is a reference TF FULL checkpoint (graph + optimizer "
+            "slots); resuming reference optimizer state is not supported. "
+            "Restore the model variables from the matching model_compact-N "
+            "instead (checkpoint_path without resume).")
+    if path.endswith(_ORBAX_SUFFIX):
+        return orbax_store.read_tree(path)
     with open(path, "rb") as f:
         return unpackb(f.read())
 
@@ -313,14 +364,30 @@ def restore_model(params: Params, checkpoint_path: Optional[str], *,
             optimizer.load_state_dict(state["opt_state"], restored)
         return restored, int(state["step"]), "resume"
 
+    # Resolve first, so that a reference TF model paired with the wrong
+    # config fails with its converter's error, and only an artifact that is
+    # not a full model goes on to the CNN branch
     resolved = None
     try:
         resolved = _resolve(checkpoint_path, COMPACT_PREFIX)
     except FileNotFoundError:
         pass
+    if resolved and resolved.endswith(_TF_SUFFIX):
+        from ..utils import tf_checkpoint as tfc
+
+        tf_path = resolved[: -len(_TF_SUFFIX)]
+        if any(n.startswith("Model/")
+               for n in tfc.reference_checkpoint_names(tf_path)):
+            # a full reference model: converter errors propagate untouched
+            restored = bridge.from_jax_tree(tfc.convert_reference_tree(
+                tfc.load_reference_checkpoint_vars(tf_path),
+                bridge.to_jax_tree(params)), device=device)
+            _check_like(restored, params)
+            return (restore_with_excludes(params, restored, exclude_scopes),
+                    0, "model")
+        # no Model/ scope: a raw slim CNN checkpoint, the CNN branch below
     compact_err: Optional[BaseException] = None
-    if resolved is not None:
-        _refuse_unported(resolved)
+    if resolved is not None and not resolved.endswith(_TF_SUFFIX):
         try:
             restored = load_compact(resolved, params)
             return (restore_with_excludes(params, restored, exclude_scopes),
@@ -328,8 +395,10 @@ def restore_model(params: Params, checkpoint_path: Optional[str], *,
         except ValueError as e:
             compact_err = e  # maybe a CNN-only file: the CNN branch below
 
-    # CNN only: a checkpoint holding just the encoder/cnn subtree
-    # (model_base.py:471-484)
+    # CNN only: a converted slim checkpoint holding just the encoder/cnn
+    # subtree (model_base.py:471-484), or a vanilla slim TF ImageNet
+    # checkpoint converted in memory (root scope auto-detected)
+    cnn_tpl = params["encoder"]["cnn"]
     path = checkpoint_path
     try:
         if os.path.isdir(path):
@@ -337,13 +406,20 @@ def restore_model(params: Params, checkpoint_path: Optional[str], *,
                      if f.endswith(_SUFFIX) or f.endswith(_TF_SUFFIX)]
             if not cands:
                 raise FileNotFoundError(f"No checkpoint under {path}")
-            path = os.path.join(path, sorted(cands, key=_natural_key)[-1])
-        _refuse_unported(path)
+            path = os.path.join(path, sorted(cands, key=natural_key)[-1])
+        if path.endswith(_TF_SUFFIX):
+            path = path[: -len(_TF_SUFFIX)]
         if os.path.exists(path + _TF_SUFFIX):
-            _refuse_unported(path + _TF_SUFFIX)
-        with open(path, "rb") as f:
-            cnn = bridge.from_jax_tree(unpackb(f.read()), device=device)
-        _check_like(cnn, params["encoder"]["cnn"])
+            from ..utils import tf_checkpoint as tfc
+
+            tpl = bridge.to_jax_tree(cnn_tpl)
+            tree = tfc.convert_slim_tree(tfc._detect_cnn_tree(
+                tfc.load_reference_checkpoint_vars(path), "", tpl), tpl)
+        else:
+            with open(path, "rb") as f:
+                tree = unpackb(f.read())
+        cnn = bridge.from_jax_tree(tree, device=device)
+        _check_like(cnn, cnn_tpl)
     except Exception as cnn_err:
         if compact_err is not None:
             raise ValueError(

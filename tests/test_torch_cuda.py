@@ -52,14 +52,16 @@ def _inputs(card, rows, beams, L, U, keys_dtype):
 # main path's (25, 3, 196, 512, 8), whose f32 keys are the largest staged
 # chunk the decode loop gives the kernels; the eval-perplexity pass's 61
 # rows (K2 at batch_size_eval); the SCST rollout's batch of 10 (K1 at beam
-# 7, K2 at R=10 for the greedy baseline); and U=4096, whose chunk fits
-# shared memory at no cluster size, so the keys are read in place
+# 7, K2 at R=10 for the greedy baseline); the overfit gate's batch of 5
+# (K1 at beam 3 in its sweeps and SCST rollouts, K2 at R=5 in its eval
+# passes and greedy baselines); and U=4096, whose chunk fits shared memory
+# at no cluster size, so the keys are read in place
 UNSTAGED = (1, 3, 196, 4096, 8)
 SHAPES = [(2, 3, 7, 16, 4), (3, 7, 33, 96, 3), (4, 3, 5, 64, 2),
           (2, 3, 50, 512, 1), (3, 7, 33, 90, 3), (2, 3, 20, 1024, 8),
           (1, 3, 196, 512, 8), (25, 7, 196, 512, 8), (25, 3, 197, 512, 8),
           (25, 3, 196, 512, 8), (61, 3, 196, 512, 8), (10, 7, 196, 512, 8),
-          UNSTAGED]
+          (5, 3, 196, 512, 8), UNSTAGED]
 
 
 @pytest.mark.parametrize("keys_dtype", [torch.float32, torch.bfloat16])
@@ -106,11 +108,13 @@ def test_large_chunks_read_keys_in_place(card, keys_dtype):
 
 @pytest.mark.parametrize("rows,beams,L,U,H", [(25, 3, 196, 512, 8),
                                               (61, 3, 196, 512, 8),
+                                              (5, 3, 196, 512, 8),
                                               (3, 7, 33, 90, 3)])
 def test_kernels_are_deterministic(card, rows, beams, L, U, H):
     """The cluster reductions run in a fixed order: the same inputs give
     bitwise the same outputs (also at the COCO-server batch of 61, where
-    the plan picks its cluster size for 183 queries)."""
+    the plan picks its cluster size for 183 queries, and at the overfit
+    gate's batch of 5)."""
     query, keys, mean, m2, vecs = _inputs(card, rows, beams, L, U,
                                           torch.bfloat16)
     runs = [k1.grouped_add_ln_attention(query, keys, mean, m2, *vecs,
@@ -425,3 +429,43 @@ def test_sweep_on_card_matches_cpu(card, tmp_path, monkeypatch):
     assert out["cuda"][2] == out["cpu"][2]
     assert out["cuda"][0] == out["cpu"][0]
     assert len(json.loads(out["cuda"][2][0])) == 4
+
+
+def test_slim_converted_cnn_restores_on_card(card, tmp_path):
+    """The overfit gate's stage-1 restore: a CNN under slim names, converted
+    by convert_slim_tree and saved by save_cnn_checkpoint, restores in mode
+    'cnn' on the card exactly as on the CPU."""
+    from comic_tpu_torch import params as bridge
+    from comic_tpu_torch.configuration import Config
+    from comic_tpu_torch.models import captioner as tcap
+    from comic_tpu_torch.models.encoders import get_encoder
+    from comic_tpu_torch.tokenization import Vocabulary
+    from comic_tpu_torch.training import checkpoints as tckpt
+    from comic_tpu_torch.utils import tf_checkpoint as tfc
+
+    cnn = bridge.to_jax_tree(get_encoder("inception_v1").init(
+        torch.Generator().manual_seed(7)))
+    slim = {f"InceptionV1/{k}": v
+            for k, v in tfc._flatten_leaves(cnn).items()}
+    template = bridge.to_jax_tree(get_encoder("inception_v1").init(
+        torch.Generator().manual_seed(0)))
+    tree = tfc.convert_slim_tree(
+        tfc.slim_reader_to_tree(slim, "InceptionV1"), template)
+    path = str(tmp_path / "inception_v1.ckpt.msgpack")
+    tckpt.save_cnn_checkpoint(path, bridge.from_jax_tree(tree, "cpu"))
+    spec = tcap.build_model_spec(
+        Config(rnn_size=32, rnn_word_size=16, attn_num_heads=2),
+        Vocabulary({"<PAD>": -1, "a": 0, "<UNK>": 1, "<GO>": 2, "<EOS>": 3}))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        params = tcap.init_params(spec, device=dev)
+        restored, step, mode = tckpt.restore_model(params, path)
+        assert (mode, step) == ("cnn", 0)
+        leaf = restored["encoder"]["cnn"]["Conv2d_1a_7x7"]["weights"]
+        assert leaf.device.type == dev.type
+        out[dev.type] = bridge.to_jax_tree(restored)
+    for path_, a in tfc._flatten_leaves(out["cuda"]).items():
+        b = tfc._flatten_leaves(out["cpu"])[path_]
+        assert a.dtype == b.dtype and (a == b).all(), path_
+    for k, v in tfc._flatten_leaves(out["cuda"]["encoder"]["cnn"]).items():
+        assert (v == tfc._flatten_leaves(cnn)[k]).all(), k

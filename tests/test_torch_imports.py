@@ -24,7 +24,10 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "comic_tpu"))
-print(",".join(names), bad)
+lazy = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("tensorflow", "tensorstore", "h5py",
+                                     "PIL", "cv2"))
+print(",".join(names), bad, lazy)
 """
 
 # the training slices' modules (XE and SCST, with the reward scorers),
@@ -49,6 +52,20 @@ EVALUATION_MODULES = {
     "comic_tpu_torch.evaluation.tokenizer",
     "comic_tpu_torch.evaluation.java_metrics"}
 
+# the stand-alone slice's modules: checkpoint formats (TF-slim, reference
+# TF1, Orbax), dataset preparation and the synthetic fixture
+STANDALONE_MODULES = {
+    "comic_tpu_torch.utils.natural_sort", "comic_tpu_torch.utils.io",
+    "comic_tpu_torch.utils.net_params", "comic_tpu_torch.utils.optional",
+    "comic_tpu_torch.utils.tf_checkpoint",
+    "comic_tpu_torch.training.orbax_store", "comic_tpu_torch.data.synthetic",
+    "comic_tpu_torch.prepro", "comic_tpu_torch.prepro.base",
+    "comic_tpu_torch.prepro.coco", "comic_tpu_torch.prepro.insta",
+    "comic_tpu_torch.prepro.ngrams"}
+
+# libraries that only the functions needing them import
+OPTIONAL_LIBRARIES = ("tensorflow", "tensorstore", "h5py", "PIL", "cv2")
+
 
 def _clean_env():
     return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -59,22 +76,26 @@ def test_port_imports_no_jax_and_no_comic_tpu():
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    names, bad = out.stdout.split(" ", 1)
+    names, bad, lazy = out.stdout.split(" ", 2)
     names = set(names.split(","))
-    assert len(names) >= 38
+    assert len(names) >= 62
     assert TRAINING_MODULES <= names, TRAINING_MODULES - names
     assert EVALUATION_MODULES <= names, EVALUATION_MODULES - names
+    assert STANDALONE_MODULES <= names, STANDALONE_MODULES - names
     assert bad.strip() == "[]"
+    # importing every module pulls in none of the optional libraries
+    assert lazy.strip() == "[]"
 
 
-def _help_without_jax(cli):
-    """``python -m comic_tpu_torch.cli.<cli> --help`` with JAX and comic_tpu
-    made unimportable, and h5py too (the card's machine has none; the
-    packed-HDF5 source imports it when it opens a pack)."""
-    block = ("import sys; sys.modules.update(dict.fromkeys(['jax', 'flax', "
-             "'optax', 'comic_tpu', 'h5py'])); import runpy; "
-             f"sys.argv = ['{cli}', '--help']; "
-             f"runpy.run_module('comic_tpu_torch.cli.{cli}', "
+def _help_without_jax(cli, package="cli"):
+    """``python -m comic_tpu_torch.<package>.<cli> --help`` with JAX and
+    comic_tpu made unimportable, and the optional libraries too (the card's
+    machine has none of h5py, TensorFlow, tensorstore, PIL or cv2; each is
+    imported only by the functions that need it)."""
+    blocked = ["jax", "flax", "optax", "comic_tpu", *OPTIONAL_LIBRARIES]
+    block = (f"import sys; sys.modules.update(dict.fromkeys({blocked!r})); "
+             f"import runpy; sys.argv = ['{cli}', '--help']; "
+             f"runpy.run_module('comic_tpu_torch.{package}.{cli}', "
              "run_name='__main__')")
     out = subprocess.run([sys.executable, "-c", block], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
@@ -91,6 +112,15 @@ def test_training_cli_runs_without_jax():
 def test_infer_cli_runs_without_jax():
     out = _help_without_jax("infer")
     assert "--infer_checkpoints_dir" in out and "--require_ptb_jar" in out
+
+
+@pytest.mark.parametrize("cli,flags", [
+    ("coco", ("--karpathy_json", "--include_restval")),
+    ("insta", ("--train_json", "--vocab_size")),
+    ("ngrams", ("--dataset_file_pattern",))])
+def test_prepro_clis_run_without_jax_or_optional_libraries(cli, flags):
+    out = _help_without_jax(cli, "prepro")
+    assert "--dataset_dir" in out and all(f in out for f in flags)
 
 
 @pytest.fixture
