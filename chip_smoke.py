@@ -69,13 +69,32 @@ Phases (any failure raises and exits non-zero):
      CIDEr > 5 and BLEU-4 > 0.5; 20 SCST steps at beam 3 must keep a finite
      |reward| < 5 and CIDEr > 4. K1 launches in the sweeps and the SCST
      rollouts, K2 in the eval passes and the greedy baselines, neither in
-     a train step.
+     a train step;
+ 15. zoo-serve: every encoder comic_tpu registers (20 --cnn_name values)
+     at 224 in bf16 with COMIC-256's decoder: seeded port weights with BN
+     statistics perturbed, a compact checkpoint, and 2 batches of 25
+     seeded images through run_inference at beam 3; K1 must launch once
+     on every beam step (counted apart by wrapping the search's step) and
+     every caption hold words; per encoder L, C, encoder ms, steady-batch
+     ms, captions/s, launches and peak memory. resnet_v1_50 and
+     inception_v3 (one of each preprocessing kind) also serve a batch
+     greedy, with K2 on every step;
+ 16. zoo-agree: one encoder of each module, float32 with TF32 off, batch
+     2, beam 3, card vs the port's CPU path: the attention memory within
+     TOL_ZOO of its scale and the top-beam ids equal;
+ 17. zoo-train: 10 steps of the training CLI's cnn_finetune stage with
+     resnet_v1_50 at batch 32 (the VGG train augmentation on the card and
+     the backward of slim's fixed-pad strided convs): finite losses, the
+     checkpoints, 0 kernel launches in every train step, K2 in the eval
+     pass.
 
 Phase 3 holds the kernels at the serving shapes, at K2's eval-perplexity
 batch, at the SCST rollout's shapes (K1 at batch 10, beam 7; K2 at 10
 rows for the greedy baseline), K1 at the COCO server split's batch of
-61 and both at the overfit gate's batch of 5 (K1 at beam 3; these two
-also checked bitwise repeatable). Phases 4 and 5 also time one steady batch
+61, both at the overfit gate's batch of 5 (K1 at beam 3) and both at the
+serving batch at the zoo's other attention sizes, L=49 and L=144 (the
+COCO server, gate and zoo shapes also checked bitwise repeatable).
+Phases 4 and 5 also time one steady batch
 and profile one more, phases 7 and 8 profile one more train step
 (torch.profiler; the per-kernel tables go to smoke_out/profile_*.txt).
 
@@ -139,6 +158,27 @@ LOSS_DROP = 0.4
 # train-agree: one float32 train step, card vs CPU, the same operations
 # summed in other orders (cuDNN and cuBLAS against the CPU's kernels)
 TOL_TRAIN = 1e-4
+# the encoder zoo: every --cnn_name comic_tpu registers serves ZOO_BATCHES
+# batches of B at beam 3 (bf16, 224x224: the 299/331 nets too, since the
+# pipeline crops the 256x256 host images and never upsamples); one of each
+# preprocessing kind also serves a batch greedy; one encoder of each
+# module is held card vs CPU in float32 (ZOO_AGREE); and ResNet-50 trains
+# ZOO_TRAIN_STEPS steps of the cnn_finetune stage. ZOO_L: the attention
+# sizes of the zoo's default endpoints at 224 besides Inception-V1's 196
+# (block3 7x7 of the ResNets; 12x12 of Inception-V3, V4 and
+# Inception-ResNet-V2), at which check_kernels holds K1 and K2
+ZOO_BATCHES = 2
+ZOO_GREEDY = ("resnet_v1_50", "inception_v3")
+ZOO_AGREE = ("inception_v2", "inception_v3", "inception_v4",
+             "inception_resnet_v2", "resnet_v1_50", "resnet_v2_50", "vgg_16",
+             "mobilenet_v1", "mobilenet_v2", "nasnet_mobile",
+             "pnasnet_mobile")
+# ResNet-50's attention size at 224 (block3, 7x7): K2's in the eval pass
+ZOO_TRAIN_NET, ZOO_TRAIN_STEPS, ZOO_TRAIN_L = "resnet_v1_50", 10, 49
+ZOO_L = (49, 144)
+# zoo-agree: the card's attention memory against the CPU's, float32, TF32
+# off (cuDNN's and the CPU's convolutions sum in other orders)
+TOL_ZOO = 1e-4
 # float32 operations per (query, position, channel) besides the tanh: K1
 # cross term 2, normalize 3, affine 2, v and head sum 2, context 2; K2
 # takes its statistics in two passes (6) instead of the cross term. Each
@@ -243,13 +283,13 @@ def profile_serve(serve, params, images, tag):
     return busy_us / 1e3, wall_ms, table[:5]
 
 
-def kernel_inputs(keys_dtype, rows, beams):
-    """Seeded main-path inputs on the card; beams=None gives K2's (R, U)
-    queries over per-row keys."""
+def kernel_inputs(keys_dtype, rows, beams, length=L):
+    """Seeded main-path inputs on the card (``length`` positions a row);
+    beams=None gives K2's (R, U) queries over per-row keys."""
     import torch
 
     g = torch.Generator().manual_seed(SEED)
-    keys = torch.randn(rows, L, U, generator=g).to("cuda", keys_dtype)
+    keys = torch.randn(rows, length, U, generator=g).to("cuda", keys_dtype)
     qshape = (rows, U) if beams is None else (rows, beams, U)
     query = torch.randn(*qshape, generator=g).cuda()
     vecs = [(torch.rand(U, generator=g) - 0.5).cuda() * 0.2,
@@ -301,20 +341,27 @@ def check_kernels():
     # baseline), and K1 at the COCO server split's forced batch of 61 (the
     # eval sweep; K2's rows there are eval_shape's 61), and both at the
     # overfit gate's batch of 5 (its sweeps and SCST rollouts at beam 3, its
-    # eval passes and greedy baselines)
-    for name, beams, rows, tag in (
-            ("grouped_add_ln_attention", K, B, "main"),
-            ("fused_add_ln_attention", None, B, "main"),
-            ("fused_add_ln_attention", None, EVAL_B, "eval_shape"),
-            ("grouped_add_ln_attention", SCST_K, SCST_B, "scst_shape"),
-            ("fused_add_ln_attention", None, SCST_B, "scst_shape"),
-            ("grouped_add_ln_attention", K, COCO_B, "coco_shape"),
-            ("grouped_add_ln_attention", GATE_BEAM, GATE_B, "gate_shape"),
-            ("fused_add_ln_attention", None, GATE_B, "gate_shape")):
+    # eval passes and greedy baselines), and both at the serving batch at
+    # the encoder zoo's other attention sizes (ZOO_L)
+    shapes = [("grouped_add_ln_attention", K, B, "main", L),
+              ("fused_add_ln_attention", None, B, "main", L),
+              ("fused_add_ln_attention", None, EVAL_B, "eval_shape", L),
+              ("grouped_add_ln_attention", SCST_K, SCST_B, "scst_shape", L),
+              ("fused_add_ln_attention", None, SCST_B, "scst_shape", L),
+              ("grouped_add_ln_attention", K, COCO_B, "coco_shape", L),
+              ("grouped_add_ln_attention", GATE_BEAM, GATE_B, "gate_shape",
+               L),
+              ("fused_add_ln_attention", None, GATE_B, "gate_shape", L)]
+    for length in ZOO_L:
+        shapes += [("grouped_add_ln_attention", K, B, f"zoo_L{length}",
+                    length),
+                   ("fused_add_ln_attention", None, B, f"zoo_L{length}",
+                    length)]
+    for name, beams, rows, tag, length in shapes:
         worst = 0.0
         for keys_dtype in (torch.float32, torch.bfloat16):
             query, keys, mean, m2, vecs = kernel_inputs(keys_dtype, rows,
-                                                        beams)
+                                                        beams, length)
             if beams is None:
                 plan = k2.fused_add_ln_attention_plan(keys, num_heads=H)
 
@@ -348,7 +395,8 @@ def check_kernels():
                    .abs().max().item(),
                    "align": (align - align_p).abs().max().item()}
             beyond = (direct - slack).max().item()
-            print(f"{name} R={rows} keys={str(keys_dtype)[6:]}: cluster of "
+            print(f"{name} R={rows} L={length} keys={str(keys_dtype)[6:]}: "
+                  f"cluster of "
                   f"{plan['cluster']} blocks, grid {plan['grid']}, "
                   f"{plan['smem_bytes']} B shared memory a block, keys "
                   f"{'staged' if plan['keys_staged'] else 'not staged'}; "
@@ -365,14 +413,16 @@ def check_kernels():
                                      f"the rounding slack")
             if not (torch.isfinite(ctx).all() and torch.isfinite(align).all()):
                 raise AssertionError(f"{name} produced non-finite values")
-            if tag in ("coco_shape", "gate_shape"):  # new plan row counts
+            # the plans of new row counts and lengths
+            if tag in ("coco_shape", "gate_shape") or tag.startswith("zoo"):
                 again = kern()
                 if not (torch.equal(again[0], ctx)
                         and torch.equal(again[1], align)):
-                    raise AssertionError(f"{name} R={rows} is not bitwise "
-                                         "repeatable")
-                print(f"{name} R={rows} keys={str(keys_dtype)[6:]}: a "
-                      "second launch gives bitwise the same outputs")
+                    raise AssertionError(f"{name} R={rows} L={length} is "
+                                         "not bitwise repeatable")
+                print(f"{name} R={rows} L={length} "
+                      f"keys={str(keys_dtype)[6:]}: a second launch gives "
+                      "bitwise the same outputs")
             worst = max(worst, *err.values())
         # times and bound at the main path's dtype (bf16 keys)
         ms, host_ms = device_ms(kern)
@@ -380,10 +430,10 @@ def check_kernels():
         n_q = rows * (beams or 1)
         nbytes = (query.numel() * 4 + keys.numel() * keys.element_size()
                   + sum(v.numel() * 4 for v in vecs)
-                  + (2 * rows * L * 4 if beams else 0)  # key moments
-                  + n_q * U * 4 + n_q * H * L * 4)  # ctx, align written
-        ops = OPS_PER_ELEMENT[name] * n_q * L * U
-        sfu = n_q * L * U + n_q * H * L  # tanh, softmax exp
+                  + (2 * rows * length * 4 if beams else 0)  # key moments
+                  + n_q * U * 4 + n_q * H * length * 4)  # ctx, align
+        ops = OPS_PER_ELEMENT[name] * n_q * length * U
+        sfu = n_q * length * U + n_q * H * length  # tanh, softmax exp
         times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
                  "float32 operations": ops / F32_FLOP_PER_S * 1e3,
                  "special-function operations": sfu / SFU_OPS_PER_S * 1e3}
@@ -402,11 +452,13 @@ def check_kernels():
             records[name] = record
         else:  # another shape of the path: kept beside the main one
             records[name][tag] = {
-                "rows": rows, "beams": beams, "max_abs_err": worst,
+                "rows": rows, "beams": beams, "L": length,
+                "max_abs_err": worst,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": times[bound_by],
                 "bound_by": record["bound_by"], "plan": plan}
         print(f"{name} R={rows}"
-              f"{f' K={beams}' if beams else ''}: {ms:.4f} ms on the card "
+              f"{f' K={beams}' if beams else ''} L={length}: {ms:.4f} ms on "
+              f"the card "
               f"({ms / times[bound_by]:.1f}x its bound; plain "
               f"{plain_ms:.4f} ms, "
               f"bound {times[bound_by] * 1e3:.2f} us by {bound_by}: "
@@ -420,10 +472,13 @@ def check_kernels():
     return records
 
 
-def smoke_config(beam: int, batch: int, dtype: str):
+def smoke_config(beam: int, batch: int, dtype: str,
+                 cnn_name: str = "inception_v1"):
     """Full-width COMIC-256 serving config with a COCO-sized vocabulary
-    (10,000 words: 2 radix digits per word, 60 decode steps)."""
+    (10,000 words: 2 radix digits per word, 60 decode steps), with encoder
+    ``cnn_name`` attending to its default endpoint."""
     from comic_tpu_torch.configuration import Config
+    from comic_tpu_torch.models.encoders import get_encoder
 
     wtoi = {"<PAD>": -1}
     wtoi.update({f"w{i}": i for i in range(10000)})
@@ -431,7 +486,9 @@ def smoke_config(beam: int, batch: int, dtype: str):
     itow = {str(i): w for w, i in wtoi.items()}
     return Config(wtoi=wtoi, itow=itow, log_path=os.path.join(OUT, "exp"),
                   batch_size_infer=batch, infer_beam_size=beam,
-                  compute_dtype=dtype, infer_early_exit=True)
+                  compute_dtype=dtype, infer_early_exit=True,
+                  cnn_name=cnn_name,
+                  cnn_fm_attention=get_encoder(cnn_name).default_fm_endpoint)
 
 
 def smoke_weights(spec):
@@ -445,14 +502,16 @@ def smoke_weights(spec):
     params = init_params(spec, generator=g, device="cpu")
 
     def walk(d):
+        # BN statistics by their slim leaf names (nasnet's leaf keys keep
+        # their scope: 'conv0_bn/moving_mean'); the decoder has none
         for key, v in d.items():
-            if key == "BatchNorm":
-                n = v["beta"].shape[0]
-                v["beta"] += 0.1 * torch.randn(n, generator=g)
-                v["moving_mean"] += 0.1 * torch.randn(n, generator=g)
-                v["moving_variance"] *= 1 + 0.2 * torch.rand(n, generator=g)
-            elif isinstance(v, dict):
+            leaf = key.rsplit("/", 1)[-1]
+            if isinstance(v, dict):
                 walk(v)
+            elif leaf in ("beta", "moving_mean"):
+                v += 0.1 * torch.randn(v.shape[0], generator=g)
+            elif leaf == "moving_variance":
+                v *= 1 + 0.2 * torch.rand(v.shape[0], generator=g)
 
     walk(params)
     proj = params["decoder"]["output_projection"]
@@ -546,11 +605,13 @@ def serve_phase(beam, kernel, ckpt_path, batches):
     return launches
 
 
-def agreement_phase(ckpt_state):
-    """Phase 6: float32, TF32 off, batch 2: card vs plain CPU path."""
+def card_vs_cpu(ckpt_state, cnn_name="inception_v1"):
+    """float32, TF32 off, batch 2, beam 3: the attention keys and the
+    top-beam ids of the card's serve and of the port's plain CPU path ->
+    (keys' max difference over their largest magnitude, {device: ids})."""
     import torch
 
-    from comic_tpu_torch.data.preprocessing import preprocess_batch
+    from comic_tpu_torch.data.preprocessing import preprocess_for
     from comic_tpu_torch.decoding import search
     from comic_tpu_torch.inference import make_serve_fn
     from comic_tpu_torch.models.captioner import build_model_spec, tree_to
@@ -558,24 +619,31 @@ def agreement_phase(ckpt_state):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    config = smoke_config(3, 2, "float32")
+    config = smoke_config(3, 2, "float32", cnn_name)
     vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
     spec = build_model_spec(config, vocab)
     images = image_batches(1, 2)[0][0]
-    out = {}
+    keys, ids = {}, {}
     for dev in ("cuda", "cpu"):
         params = tree_to(ckpt_state, torch.device(dev))
         serve = make_serve_fn(spec, config, 60, collect_alignments=False,
                               device=dev)
         with torch.inference_mode():
             _, memory = search._prepare_memory(
-                params, spec, preprocess_batch(images, 224, 224,
-                                               torch.device(dev)))
-        out[dev] = (memory.keys.cpu(), serve(params, images)[0].cpu())
-    keys_err = ((out["cuda"][0] - out["cpu"][0]).abs().max()
-                / out["cpu"][0].abs().max()).item()
-    same = (out["cuda"][1] == out["cpu"][1]).float().mean().item()
-    rows = (out["cuda"][1] == out["cpu"][1]).all(dim=1).sum().item()
+                params, spec, preprocess_for(cnn_name)(
+                    images, 224, 224, torch.device(dev)))
+        keys[dev] = memory.keys.cpu()
+        ids[dev] = serve(params, images)[0].cpu()
+    keys_err = ((keys["cuda"] - keys["cpu"]).abs().max()
+                / keys["cpu"].abs().max()).item()
+    return keys_err, ids
+
+
+def agreement_phase(ckpt_state):
+    """Phase 6: float32, TF32 off, batch 2: card vs plain CPU path."""
+    keys_err, ids = card_vs_cpu(ckpt_state)
+    same = (ids["cuda"] == ids["cpu"]).float().mean().item()
+    rows = (ids["cuda"] == ids["cpu"]).all(dim=1).sum().item()
     print(f"float32 card vs CPU plain path: attention keys max rel error "
           f"{keys_err:.2e} (tol 1e-4); top-beam ids agree at {same:.1%} of "
           f"positions, {rows}/2 captions identical")
@@ -635,7 +703,19 @@ class CountedEval:
         self.pipe.close()
 
 
-def train_phase(stage, steps, ckpt_path, kernels):
+def stage_argv(stage, ckpt_path=None, cnn_name="inception_v1"):
+    """The training CLI's command line of the smoke's ``stage`` (the
+    encoder zoo's runs are named 'zoo')."""
+    argv = ["--train_mode", stage,
+            "--name", "smoke" if cnn_name == "inception_v1" else "zoo",
+            "--cnn_name", cnn_name, "--log_root", os.path.join(OUT, "train"),
+            "--dataset_dir", os.path.join(OUT, "train", "data")]
+    if stage == "decoder":
+        argv += ["--cnn_ckpt_path", ckpt_path]
+    return argv
+
+
+def train_phase(stage, steps, ckpt_path, kernels, cnn_name="inception_v1"):
     """Phases train-decoder / train-cnnft: the stage's config from the
     training CLI's own stage chain (comic_tpu_torch.cli.train), at
     COMIC-256 defaults (bf16, dropout, alignment dropout, augment), then
@@ -651,13 +731,9 @@ def train_phase(stage, steps, ckpt_path, kernels):
     from comic_tpu_torch.data.pipeline import TrainPipeline
     from comic_tpu_torch.tokenization import Vocabulary
 
-    argv = ["--train_mode", stage, "--name", "smoke",
-            "--log_root", os.path.join(OUT, "train"),
-            "--dataset_dir", os.path.join(OUT, "train", "data")]
-    if stage == "decoder":
-        argv += ["--cnn_ckpt_path", ckpt_path]
-    stage_fn, config = stage_config(argv)
-    tag = {"decoder": "train-decoder", "cnn_finetune": "train-cnnft"}[stage]
+    stage_fn, config = stage_config(stage_argv(stage, ckpt_path, cnn_name))
+    tag = ("zoo-train" if cnn_name != "inception_v1" else
+           {"decoder": "train-decoder", "cnn_finetune": "train-cnnft"}[stage])
     vocab_cfg = smoke_config(1, B, "bfloat16")
     config.update(wtoi=vocab_cfg.wtoi, itow=vocab_cfg.itow,
                   vocab_size=len(vocab_cfg.itow))
@@ -1731,6 +1807,179 @@ def overfit_gate_phase(kernels):
     return launches, parts
 
 
+class DecodeSteps:
+    """Counts the decode steps of beam search (the decoder's
+    step_grouped) and of greedy decoding (its step) within a ``with``
+    block, by wrapping the search module's building blocks, which it looks
+    up when it runs."""
+
+    def __enter__(self):
+        from comic_tpu_torch.decoding import search
+
+        self.search, self.beam, self.greedy = search, 0, 0
+        self.saved = (search.step_grouped, search.decoder_step)
+        grouped, single = self.saved
+
+        def counted_grouped(*args, **kwargs):
+            self.beam += 1
+            return grouped(*args, **kwargs)
+
+        def counted_single(*args, **kwargs):
+            self.greedy += 1
+            return single(*args, **kwargs)
+
+        search.step_grouped, search.decoder_step = (counted_grouped,
+                                                    counted_single)
+        return self
+
+    def __exit__(self, *exc):
+        self.search.step_grouped, self.search.decoder_step = self.saved
+
+
+def zoo_serve_phase(kernels):
+    """Phase zoo-serve: every encoder comic_tpu registers, at 224 in bf16
+    with COMIC-256's decoder: seeded port weights with BN statistics
+    perturbed (smoke_weights), a compact checkpoint, and ZOO_BATCHES
+    batches of B seeded uint8 images through run_inference at beam 3; K1
+    must launch once on every beam step and every caption hold words. Then
+    the encoder and one whole batch are timed apart, and ZOO_GREEDY
+    encoders serve one batch greedy, where K2 must launch on every step.
+    -> {"k1": {L: launches}, "k2": {L: launches}, "serve": {encoder:
+    launches}, "states": {encoder: CPU weights} of ZOO_AGREE}"""
+    import torch
+
+    from comic_tpu_torch.data.preprocessing import preprocess_for
+    from comic_tpu_torch.decoding import search
+    from comic_tpu_torch.inference import make_serve_fn, run_inference
+    from comic_tpu_torch.models.captioner import (build_model_spec,
+                                                  max_decode_steps, tree_to)
+    from comic_tpu_torch.models.encoders import available_encoders
+    from comic_tpu_torch.tokenization import Vocabulary
+    from comic_tpu_torch.training.checkpoints import save_compact
+
+    k1, k2 = kernels
+    batches = image_batches(ZOO_BATCHES, B)
+    n_images = ZOO_BATCHES * B
+    out = {"k1": {}, "k2": {}, "serve": {}, "states": {}}
+
+    def serve_counted(config, ckpt_path, pipe, kernel, name, beam):
+        """run_inference with the counts set to 0 just before and read just
+        after -> (launches, decode steps, seconds, peak GiB)."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with DecodeSteps() as steps:
+            t0 = time.perf_counter()
+            _, json_path = run_inference(config, ckpt_path, pipe=pipe)
+            wall = time.perf_counter() - t0
+        launches = kernel.launches
+        n_steps = steps.beam if beam > 1 else steps.greedy
+        with open(json_path) as f:
+            caps = json.load(f)
+        n = sum(len(names) for _, names in pipe)
+        if len(caps) != n or not all(c["caption"] for c in caps):
+            raise AssertionError(f"zoo-serve {name} beam {beam}: "
+                                 f"{len(caps)} captions for {n} images, "
+                                 f"{sum(not c['caption'] for c in caps)} "
+                                 "empty")
+        if launches <= 0 or launches != n_steps:
+            raise AssertionError(
+                f"zoo-serve {name} beam {beam}: {kernel.__name__} launched "
+                f"{launches} times over {n_steps} decode steps")
+        return (launches, n_steps, wall,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    for name in available_encoders():
+        t0 = time.perf_counter()
+        config = smoke_config(3, B, "bfloat16", name)
+        config.update(log_path=os.path.join(OUT, "zoo", name))
+        vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+        spec = build_model_spec(config, vocab)
+        state = smoke_weights(spec)
+        ckpt_path = save_compact(config.log_path, 1, state)
+        setup_s = time.perf_counter() - t0
+        launches, n_steps, wall, peak_gb = serve_counted(
+            config, ckpt_path, batches, k1, name, 3)
+
+        params = tree_to(state, torch.device("cuda"))
+        h, w = config.cnn_input_size
+        images = batches[0][0]
+        preprocess = preprocess_for(name)
+
+        @torch.inference_mode()
+        def encode():
+            return search._prepare_memory(
+                params, spec, preprocess(images, h, w, torch.device("cuda")))
+
+        length = encode()[1].keys.shape[1]
+        channels = spec.decoder.attention.memory_channels
+        enc_ms = median_ms(encode, iters=5, warmup=2)
+        serve = make_serve_fn(spec, config, max_decode_steps(config, vocab),
+                              collect_alignments=False)
+        serve_ms = median_ms(lambda: serve(params, images), iters=3,
+                             warmup=1)
+        out["k1"][length] = out["k1"].get(length, 0) + launches
+        out["serve"][name] = launches
+        print(f"zoo-serve {name}: L={length} ({spec.fm_endpoint}), C="
+              f"{channels}; {n_images} captions in {wall:.2f} s through "
+              f"run_inference (first call included; weights and checkpoint "
+              f"{setup_s:.1f} s before), K1 {launches} launches = "
+              f"{n_steps} beam steps; steady batch of {B}: {serve_ms:.2f} "
+              f"ms ({B / serve_ms * 1e3:.1f} captions/s), encoder "
+              f"{enc_ms:.2f} ms; peak memory {peak_gb:.2f} GiB")
+        if name in ZOO_GREEDY:
+            config.update(infer_beam_size=1)
+            g_launches, g_steps, g_wall, _ = serve_counted(
+                config, ckpt_path, batches[:1], k2, name, 1)
+            out["k2"][length] = out["k2"].get(length, 0) + g_launches
+            print(f"zoo-serve {name} greedy: {B} captions in {g_wall:.2f} "
+                  f"s, K2 {g_launches} launches = {g_steps} decode steps "
+                  f"at L={length}")
+        if name in ZOO_AGREE:
+            out["states"][name] = state
+        del params, serve
+        torch.cuda.empty_cache()
+        shutil.rmtree(config.log_path)
+    return out
+
+
+def zoo_agree_phase(states):
+    """Phase zoo-agree: for one encoder of each module, float32 with TF32
+    off at batch 2 and beam 3, the card's attention memory within TOL_ZOO
+    of the CPU's scale and the top-beam ids equal."""
+    for name in ZOO_AGREE:
+        t0 = time.perf_counter()
+        keys_err, ids = card_vs_cpu(states[name], name)
+        equal = bool((ids["cuda"] == ids["cpu"]).all())
+        print(f"zoo-agree {name} (float32, TF32 off, batch 2, beam 3): "
+              f"attention memory max rel error {keys_err:.2e} (tol "
+              f"{TOL_ZOO:.0e}), top-beam ids "
+              f"{'equal' if equal else 'DIFFER'} {tuple(ids['cpu'].shape)}"
+              f" ({time.perf_counter() - t0:.1f} s)")
+        if keys_err > TOL_ZOO or not equal:
+            raise AssertionError(f"zoo-agree {name}: the card disagrees "
+                                 "with the CPU")
+
+
+def zoo_train_phase(state, kernels):
+    """Phase zoo-train: the training CLI's cnn_finetune stage with
+    ZOO_TRAIN_NET (VGG train augmentation, slim's fixed-pad strided convs
+    under autograd) for ZOO_TRAIN_STEPS steps of batch TRAIN_B, from a
+    decoder-stage directory holding ``state``; train_phase checks the
+    losses, the checkpoints, 0 launches in the train steps and K2 in the
+    eval pass. -> eval launches per kernel"""
+    from comic_tpu_torch.cli.train import create_parser, experiment_name
+    from comic_tpu_torch.training.checkpoints import save_compact
+
+    args = create_parser().parse_args(
+        stage_argv("decoder", "unused", ZOO_TRAIN_NET))
+    save_compact(os.path.join(OUT, "train", f"{experiment_name(args)}_run_"
+                              f"{args.run:02d}"), 1, state)
+    eval_launches, _ = train_phase("cnn_finetune", ZOO_TRAIN_STEPS, None,
+                                   kernels, ZOO_TRAIN_NET)
+    return eval_launches
+
+
 def main():
     import torch
 
@@ -1820,6 +2069,20 @@ def main():
         records[k.__name__]["gate_shape"]["launches"] = gate[i]
         records[k.__name__]["overfit_gate_launches"] = {
             part: v[i] for part, v in gate_parts.items()}
+
+    # the encoder zoo: every encoder serving, one of each module card vs
+    # CPU, and ResNet-50's cnn_finetune stage
+    zoo = zoo_serve_phase(kernels)
+    zoo_agree_phase(zoo["states"])
+    zoo_eval = zoo_train_phase(zoo["states"][ZOO_TRAIN_NET], kernels)
+    zoo["k2"][ZOO_TRAIN_L] = zoo["k2"].get(ZOO_TRAIN_L, 0) + zoo_eval[1]
+    for k, by_length in zip(kernels, (zoo["k1"], zoo["k2"])):
+        rec = records[k.__name__]
+        rec["launches"] += sum(by_length.values())
+        for length in ZOO_L:
+            rec[f"zoo_L{length}"]["launches"] = by_length.get(length, 0)
+        rec["zoo_launches_by_L"] = by_length
+    records["grouped_add_ln_attention"]["zoo_serve_launches"] = zoo["serve"]
 
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

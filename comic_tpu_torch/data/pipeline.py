@@ -8,8 +8,7 @@ Training batches are bucketed by caption length and padded UP to their
 bucket's bound (comic_tpu's static shapes), drawn in comic_tpu's order from
 ``random.Random(seed)``, so both packages see the same batches.
 Inference can also read pre-decoded images from a packed HDF5 dataset
-(``PackedImageSource``). The VGG host modes and multi-process sharding
-wait for later slices.
+(``PackedImageSource``). Multi-process sharding waits for a later slice.
 """
 
 from __future__ import annotations
@@ -79,8 +78,9 @@ def pad_rows(rows: Sequence[np.ndarray], width: int) -> np.ndarray:
 
 def host_resize_mode(config: Config, is_training: bool) -> str:
     """Host resize policy per encoder family: 'square' for inception-style
-    nets; the vgg/resnet aspect modes (not yet ported here) otherwise
-    (reference preprocessing_factory.py:31-84)."""
+    nets; for vgg/resnet the aspect-preserving resize, with the train-time
+    scale jitter in training (reference preprocessing_factory.py:31-84,
+    vgg_preprocessing.py:286-365). An unknown cnn_name raises here."""
     from ..models.encoders import get_encoder
 
     if get_encoder(config.cnn_name).preprocessing != "vgg":
@@ -88,22 +88,19 @@ def host_resize_mode(config: Config, is_training: bool) -> str:
     return "aspect_train" if is_training else "aspect_eval"
 
 
-def _check_square_resize(config: Config) -> None:
-    """Only the inception-style (square resize) host path is ported."""
-    from ..models.encoders import get_encoder
-
-    if get_encoder(config.cnn_name).preprocessing == "vgg":
-        raise NotImplementedError(
-            "The aspect-preserving (vgg/resnet) host resize is not yet "
-            "ported to comic_tpu_torch.")
-
-
 class _ImageLoaderPool:
-    """Thread pool turning filepaths into fixed-shape uint8 images."""
+    """Thread pool turning filepaths into fixed-shape uint8 images in host
+    resize ``mode``. In 'aspect_train' each image of a batch draws its
+    scale jitter and crop from its own numpy Generator, seeded from one
+    Generator of ``seed`` in image order (comic_tpu's streams: the same
+    seed gives the same images)."""
 
-    def __init__(self, num_workers: int = 8, tf1_exact: bool = False):
+    def __init__(self, num_workers: int = 8, mode: str = "square",
+                 tf1_exact: bool = False, seed: Optional[int] = None):
         self.num_workers = num_workers
+        self.mode = mode
         self.tf1_exact = tf1_exact
+        self._rng = np.random.default_rng(seed)
         self._pool: Optional[ThreadPoolExecutor] = None  # lazy, persistent
         self._closed = False
 
@@ -111,9 +108,14 @@ class _ImageLoaderPool:
         if self._closed:
             raise ValueError("load() on a closed _ImageLoaderPool")
         out = np.empty((len(paths), RESIZE_SIZE, RESIZE_SIZE, 3), np.uint8)
+        seeds = (self._rng.integers(0, 2**63, len(paths))
+                 if self.mode == "aspect_train" else None)
 
         def load_one(i):
-            out[i] = load_and_resize_host(paths[i], tf1_exact=self.tf1_exact)
+            rng = (np.random.default_rng(int(seeds[i]))
+                   if seeds is not None else None)
+            out[i] = load_and_resize_host(paths[i], mode=self.mode,
+                                          tf1_exact=self.tf1_exact, rng=rng)
 
         if len(paths) == 1:
             load_one(0)
@@ -343,9 +345,10 @@ class TrainPipeline:
         self.batch_size = (config.batch_size_train if self.is_training
                            else config.batch_size_eval)
         if loader is None:
-            _check_square_resize(config)
             loader = _ImageLoaderPool(
-                num_workers, tf1_exact=bool(config.get("host_resize_tf1")))
+                num_workers, mode=host_resize_mode(config, self.is_training),
+                tf1_exact=bool(config.get("host_resize_tf1")),
+                seed=config.rand_seed)
         self.loader = loader
         self.rng = random.Random(
             seed if seed is not None else config.rand_seed)
@@ -459,9 +462,10 @@ class ScstPipeline:
         self.records = records
         self.batch_size = config.batch_size_train
         if loader is None:
-            _check_square_resize(config)
             loader = _ImageLoaderPool(
-                num_workers, tf1_exact=bool(config.get("host_resize_tf1")))
+                num_workers, mode=host_resize_mode(config, True),
+                tf1_exact=bool(config.get("host_resize_tf1")),
+                seed=config.rand_seed)
         self.loader = loader
         self.rng = random.Random(
             seed if seed is not None else config.rand_seed)
@@ -522,8 +526,9 @@ class InferencePipeline:
                 packed, mode=host_resize_mode(config, False),
                 tf1_exact=tf1_exact)
         else:
-            _check_square_resize(config)
-            self.loader = _ImageLoaderPool(num_workers, tf1_exact=tf1_exact)
+            self.loader = _ImageLoaderPool(
+                num_workers, mode=host_resize_mode(config, False),
+                tf1_exact=tf1_exact)
         self._join_dataset_dir = not packed  # packed rows key on rel paths
         self._prefetchers: list = []
 

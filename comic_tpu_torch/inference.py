@@ -2,8 +2,9 @@
 
 Counterpart of comic_tpu/inference.py (reference src/infer_fn.py:78-315
 run_inference / evaluate_model / evaluate_captions, infer.py:90-138). The
-decode runs on the card: uint8 batch -> eval preprocessing -> Inception-V1
--> beam search (or greedy); the scoring runs on the host. Artifacts are
+decode runs on the card: uint8 batch -> the encoder's eval preprocessing
+-> the encoder (``cnn_name``, Inception-V1 by default) -> beam search (or
+greedy); the scoring runs on the host. Artifacts are
 the same as comic_tpu's:
 
   - save dir  ``infer_{set}_beam_{B}_lpen_{L}`` under the experiment dir

@@ -7,7 +7,7 @@ Feature maps are NCHW here; the endpoint dict carries slim's names
 (Conv2d_1a_7x7 ... Mixed_5c). BatchNorm is the frozen inference-mode affine
 (scale=False, eps=0.001) in every training stage, as in the reference
 (model_base.py:72-76). Convolutions follow TF's SAME padding rule, which is
-asymmetric at stride 2 (layers.conv2d_same / max_pool_same).
+asymmetric at stride 2 (layers.conv2d / max_pool).
 """
 
 from __future__ import annotations
@@ -101,13 +101,13 @@ def _mixed_block(p: Params, x: torch.Tensor,
     b0, b1, b2 = layers.merged_1x1_bn_relu(
         [p["Branch_0"]["Conv2d_0a_1x1"], p["Branch_1"]["Conv2d_0a_1x1"],
          p["Branch_2"]["Conv2d_0a_1x1"]], x, BN_EPS, dtype)
-    b1 = layers.conv_bn_relu(p["Branch_1"]["Conv2d_0b_3x3"], b1, 1, BN_EPS,
-                             dtype)
-    b2 = layers.conv_bn_relu(p["Branch_2"]["Conv2d_0b_3x3"], b2, 1, BN_EPS,
-                             dtype)
-    b3 = layers.max_pool_same(x, 3, 1)
-    b3 = layers.conv_bn_relu(p["Branch_3"]["Conv2d_0b_1x1"], b3, 1, BN_EPS,
-                             dtype)
+    b1 = layers.conv_bn(p["Branch_1"]["Conv2d_0b_3x3"], b1, 1, BN_EPS,
+                        dtype)
+    b2 = layers.conv_bn(p["Branch_2"]["Conv2d_0b_3x3"], b2, 1, BN_EPS,
+                        dtype)
+    b3 = layers.max_pool(x, 3, 1)
+    b3 = layers.conv_bn(p["Branch_3"]["Conv2d_0b_1x1"], b3, 1, BN_EPS,
+                        dtype)
     return torch.cat([b0, b1, b2, b3], dim=1)
 
 
@@ -127,11 +127,10 @@ def apply(params: Params, images: torch.Tensor,
     for name, kind, spec in _V1_BLOCKS:
         if kind == "conv":
             _, _, stride = spec
-            net = layers.conv_bn_relu(params[name], net, stride, BN_EPS,
-                                      dtype)
+            net = layers.conv_bn(params[name], net, stride, BN_EPS, dtype)
         elif kind == "pool":
             k, stride = spec
-            net = layers.max_pool_same(net, k, stride)
+            net = layers.max_pool(net, k, stride)
         else:
             net = _mixed_block(params[name], net, dtype)
         end_points[name] = net

@@ -1,5 +1,6 @@
 """Primitive layers: initializers, dense, layer norm, head reshapes, frozen
-BN, TF-"SAME" convolutions and pools.
+BN, TF convolutions (SAME, VALID or explicit pads; depthwise) and pools
+(max, and average divided by the in-bounds count).
 
 Counterpart of comic_tpu/models/layers.py. Parameters are the JAX tree's
 nested dicts with torch tensors as leaves; conv kernels are OIHW (the only
@@ -141,7 +142,7 @@ def combine_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b, l, h * d)
 
 
-# --- TF "SAME" convolutions and pools (NCHW) ---------------------------------
+# --- TF convolutions and pools (NCHW) ---------------------------------------
 
 def same_padding(size: int, k: int, stride: int) -> tuple:
     """(before, after) padding of TF's SAME rule on one axis: the output
@@ -152,50 +153,104 @@ def same_padding(size: int, k: int, stride: int) -> tuple:
     return total // 2, total - total // 2
 
 
-def _pads(x: torch.Tensor, k: int, stride: int):
-    ph = same_padding(x.shape[2], k, stride)
-    pw = same_padding(x.shape[3], k, stride)
-    return ph, pw
+def _pads(x: torch.Tensor, kh: int, kw: int, stride: int, padding):
+    """((top, bottom), (left, right)) of ``padding``: 'SAME' (TF's rule on
+    each axis), 'VALID', or the pairs themselves."""
+    if padding == "SAME":
+        return (same_padding(x.shape[2], kh, stride),
+                same_padding(x.shape[3], kw, stride))
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    return tuple(padding)
 
 
-def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int
-                ) -> torch.Tensor:
-    """SAME conv of NCHW x with an OIHW kernel (square). Symmetric pads go
-    to the conv itself; asymmetric ones (stride 2) are padded first, since
-    ``padding='same'`` refuses a stride above 1."""
-    ph, pw = _pads(x, w.shape[2], stride)
-    if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, w, stride=stride, padding=(ph[0], pw[0]))
-    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, w, stride=stride)
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+           padding="SAME", groups: int = 1) -> torch.Tensor:
+    """TF convolution of NCHW x with an OIHW kernel (any kh x kw).
+    Symmetric pads go to the conv itself; asymmetric ones (SAME at stride
+    2, slim's fixed pad) are padded first."""
+    (pt, pb), (pl, pr) = _pads(x, w.shape[2], w.shape[3], stride, padding)
+    if pt == pb and pl == pr:
+        return F.conv2d(x, w, stride=stride, padding=(pt, pl), groups=groups)
+    return F.conv2d(F.pad(x, (pl, pr, pt, pb)), w, stride=stride,
+                    groups=groups)
 
 
-def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
-    """SAME max pool: the pad is -inf, so it never wins a window."""
-    ph, pw = _pads(x, k, stride)
-    if any(ph) or any(pw):
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+def depthwise_kernel(w: torch.Tensor) -> torch.Tensor:
+    """A depthwise kernel as the port stores it, (cin, mult, k, k), as the
+    grouped OIHW kernel (cin * mult, 1, k, k) of groups=cin: output
+    c * mult + m reads input channel c (a view, no copy)."""
+    cin, mult, kh, kw = w.shape
+    return w.reshape(cin * mult, 1, kh, kw)
+
+
+def max_pool(x: torch.Tensor, k: int, stride: int, padding="SAME"
+             ) -> torch.Tensor:
+    """Max pool; a SAME pad is -inf, so it never wins a window."""
+    (pt, pb), (pl, pr) = _pads(x, k, k, stride, padding)
+    if pt or pb or pl or pr:
+        x = F.pad(x, (pl, pr, pt, pb), value=float("-inf"))
     return F.max_pool2d(x, k, stride)
+
+
+def avg_pool(x: torch.Tensor, k: int, stride: int = 1, padding="SAME"
+             ) -> torch.Tensor:
+    """tf.nn.avg_pool (comic_tpu's layers.avg_pool_same): a window at the
+    edge divides by the number of its IN-BOUNDS elements. torch's
+    avg_pool2d pads symmetrically and counts otherwise, so the pad here is
+    explicit (asymmetric where TF's is) and the divisor is the window sum
+    of a ones image padded the same way."""
+    (pt, pb), (pl, pr) = _pads(x, k, k, stride, padding)
+    if not (pt or pb or pl or pr):
+        return F.avg_pool2d(x, k, stride)
+    pad = (pl, pr, pt, pb)
+    summed = F.avg_pool2d(F.pad(x, pad), k, stride, divisor_override=1)
+    ones = x.new_ones((1, 1) + tuple(x.shape[2:]))
+    counts = F.avg_pool2d(F.pad(ones, pad), k, stride, divisor_override=1)
+    return summed / counts
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(relu(x), 6), as comic_tpu's mobilenets write it."""
+    return torch.clamp(x, 0.0, 6.0)
 
 
 # --- frozen batch norm --------------------------------------------------------
 
 def frozen_bn(y: torch.Tensor, bn: Params, eps: float) -> torch.Tensor:
-    """Inference-mode BN with scale=False on NCHW float32 ``y``."""
+    """Inference-mode BN on NCHW float32 ``y``: scale=False (no ``gamma``,
+    the inception family) or scale=True (``gamma`` multiplies the inverse
+    deviation first, as comic_tpu's resnets and mobilenets do)."""
     inv = torch.rsqrt(bn["moving_variance"] + eps)
+    if "gamma" in bn:
+        inv = inv * bn["gamma"]
     shape = (1, -1, 1, 1)
     return ((y - bn["moving_mean"].view(shape)) * inv.view(shape)
             + bn["beta"].view(shape))
 
 
-def conv_bn_relu(p: Params, x: torch.Tensor, stride: int, eps: float,
-                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """SAME conv in the compute dtype, float32 frozen BN, relu."""
-    w = p["weights"]
+def conv_f32(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+             padding="SAME", dtype: Optional[torch.dtype] = None,
+             groups: int = 1) -> torch.Tensor:
+    """The convolution in the compute dtype (input and kernel rounded to
+    it, the output in it), then cast to float32 — comic_tpu's
+    ``conv(x.astype(dtype), w.astype(dtype)).astype(float32)``."""
     if dtype is not None:
         x, w = x.to(dtype), w.to(dtype)
-    y = conv2d_same(x, w, stride).float()
-    return torch.relu(frozen_bn(y, p["BatchNorm"], eps))
+    return conv2d(x, w, stride, padding, groups).float()
+
+
+def conv_bn(p: Params, x: torch.Tensor, stride: int, eps: float,
+            dtype: Optional[torch.dtype] = None, padding="SAME",
+            act: Optional[Callable] = torch.relu,
+            kernel: Optional[torch.Tensor] = None, groups: int = 1
+            ) -> torch.Tensor:
+    """conv_f32 of ``p["weights"]`` (or ``kernel``), float32 frozen BN of
+    ``p["BatchNorm"]``, then ``act`` (None: linear)."""
+    w = p["weights"] if kernel is None else kernel
+    y = frozen_bn(conv_f32(x, w, stride, padding, dtype, groups),
+                  p["BatchNorm"], eps)
+    return y if act is None else act(y)
 
 
 def merged_1x1_bn_relu(parts: Sequence[Params], x: torch.Tensor, eps: float,
@@ -221,6 +276,34 @@ def merged_1x1_bn_relu(parts: Sequence[Params], x: torch.Tensor, eps: float,
           for key in ("moving_mean", "moving_variance", "beta")}
     y = torch.relu(frozen_bn(y, bn, eps))
     return list(torch.split(y, [q["weights"].shape[0] for q in parts], dim=1))
+
+
+# --- conv parameter initializers (OIHW) --------------------------------------
+
+def conv_kernel(generator: torch.Generator, kh: int, kw: int, cin: int,
+                cout: int, fan: Optional[int] = None) -> torch.Tensor:
+    """slim's truncated-normal variance scaling over ``fan`` (default
+    FAN_IN, kh * kw * cin), drawn in the JAX tree's HWIO shape and stored
+    OIHW."""
+    fan = kh * kw * cin if fan is None else fan
+    hwio = slim_variance_scaling(generator, (kh, kw, cin, cout), fan)
+    return hwio.permute(3, 2, 0, 1).contiguous()
+
+
+def bn_init(c: int, gamma: bool = False) -> Params:
+    """Frozen BN statistics at their initial values (``gamma``: scale=True)."""
+    bn = {"beta": torch.zeros(c)}
+    if gamma:
+        bn["gamma"] = torch.ones(c)
+    bn["moving_mean"] = torch.zeros(c)
+    bn["moving_variance"] = torch.ones(c)
+    return bn
+
+
+def conv_bn_init(generator: torch.Generator, kh: int, kw: int, cin: int,
+                 cout: int, gamma: bool = False) -> Params:
+    return {"weights": conv_kernel(generator, kh, kw, cin, cout),
+            "BatchNorm": bn_init(cout, gamma)}
 
 
 # --- misc -----------------------------------------------------------------

@@ -34,7 +34,7 @@ from ..models.captioner import (
     xe_forward,
 )
 from ..models.layers import count_params
-from ..params import _is_conv_kernel
+from ..params import jax_shape
 from ..tokenization import Vocabulary, build_char_vocab
 from ..utils.summaries import SummaryWriter
 from . import checkpoints as ckpt
@@ -151,13 +151,10 @@ def _write_model_size(log_path: str, subtree: Params, scope: str) -> None:
     """model_size.txt in the reference's format (ops.get_model_size,
     common/ops.py:62-91), byte for byte comic_tpu's: an INFO line with the
     total, then one 'name\\r\\nshape' stanza per variable, shapes in
-    comic_tpu's layout (conv kernels HWIO)."""
+    comic_tpu's layout (params.jax_shape: conv kernels HWIO)."""
     entries = []
     for path, leaf in tree_items(subtree):
-        shape = list(leaf.shape)
-        if _is_conv_kernel(path[-1], len(shape)):
-            shape = [shape[2], shape[3], shape[1], shape[0]]
-        entries.append((path_string(path), shape))
+        entries.append((path_string(path), jax_shape(path[-1], leaf.shape)))
     total = count_params(subtree)
     mssg = (f"\r\nINFO: Scope `{scope}` contains {total:,d} trainable "
             f"parameters.\r\n\r\n")

@@ -208,8 +208,7 @@ def convert_slim_checkpoint(ckpt_path: str, out_path: str,
                             cnn_name: str = "inception_v1") -> str:
     """slim checkpoint -> encoder-only msgpack checkpoint (the pretrained-
     CNN artifact the decoder stage restores in mode 'cnn'). The template is
-    this package's encoder, in comic_tpu's layout through the bridge; an
-    encoder not yet ported raises from get_encoder."""
+    this package's encoder, in comic_tpu's layout through the bridge."""
     import torch
 
     from .. import params as bridge

@@ -22,6 +22,8 @@ from comic_tpu_torch.evaluation import coco_eval as tcoco
 from comic_tpu_torch.evaluation import java_metrics as tjava
 from comic_tpu_torch.evaluation import rouge as trouge
 from comic_tpu_torch.evaluation import tokenizer as ttok
+from test_torch_native_ciderd import (  # noqa: F401 (fixtures)
+    assert_both_native, ciderd_used, native_ciderd)
 
 torch.set_num_threads(1)
 
@@ -156,11 +158,12 @@ def _assert_same_scores(out, metrics):
 
 
 @pytest.mark.parametrize("kind", ["int", "str"])
-def test_evaluate_captions_and_artifacts_match(tmp_path, kind):
+def test_evaluate_captions_and_artifacts_match(tmp_path, kind, ciderd_used):
     ann, res = _corpus(3, 60, kind)
     out = _score_both(tmp_path, ann, res)
     files = _assert_same_scores(out, ["Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4",
                                       "ROUGE_L", "CIDEr"])
+    assert_both_native(ciderd_used)
     scores = out["torch"][0]
     assert all(np.isfinite(v) and v > 0 for v in scores.values())
     csv = files["metric_scores.csv"].decode().splitlines()
@@ -388,7 +391,7 @@ def test_ptb_jar_path_matches(fake_jars):
 
 @pytest.mark.parametrize("kind", ["int", "str"])
 def test_evaluate_captions_with_every_metric_matches(tmp_path, fake_jars,
-                                                     kind):
+                                                     kind, ciderd_used):
     """With Java and the three jars the evaluator tokenizes through the
     jar and adds METEOR and SPICE; both packages' scores and artifacts
     agree (a hypothesis of one word makes SPICE NaN)."""
@@ -396,6 +399,7 @@ def test_evaluate_captions_with_every_metric_matches(tmp_path, fake_jars,
     res[4]["caption"] = "dog"
     out = _score_both(tmp_path, ann, res, jar_dir=fake_jars)
     files = _assert_same_scores(out, tcoco.METRIC_ORDER)
+    assert_both_native(ciderd_used)
     assert files["metric_scores.txt"].decode().splitlines()[0] == \
         "checkpoint\t" + "\t".join(tcoco.METRIC_ORDER)
     assert np.isnan(out["torch"][0]["SPICE"])
@@ -534,12 +538,12 @@ def test_inference_pipeline_reads_the_pack(packed):
         with pytest.raises(ValueError, match="host_resize_tf1"):
             pipe_cls(_infer_config(cfg, root, packed_dataset=h5,
                                    host_resize_tf1=True))
-    with pytest.raises(ValueError, match="aspect|square"):
-        JPipe(_infer_config(JConfig, root, packed_dataset=h5,
-                            cnn_name="vgg_16"))
-    with pytest.raises(NotImplementedError, match="vgg_16"):
-        InferencePipeline(_infer_config(Config, root, packed_dataset=h5,
-                                        cnn_name="vgg_16"))
+    # a pack holds square-resized images: the aspect (vgg) host mode is
+    # refused by both
+    for pipe_cls, cfg in ((InferencePipeline, Config), (JPipe, JConfig)):
+        with pytest.raises(ValueError, match="aspect"):
+            pipe_cls(_infer_config(cfg, root, packed_dataset=h5,
+                                   cnn_name="vgg_16"))
 
 
 @pytest.mark.parametrize("extra", [{}, {"cnn_name": "vgg_16"},

@@ -54,14 +54,17 @@ def _inputs(card, rows, beams, L, U, keys_dtype):
 # rows (K2 at batch_size_eval); the SCST rollout's batch of 10 (K1 at beam
 # 7, K2 at R=10 for the greedy baseline); the overfit gate's batch of 5
 # (K1 at beam 3 in its sweeps and SCST rollouts, K2 at R=5 in its eval
-# passes and greedy baselines); and U=4096, whose chunk fits shared memory
-# at no cluster size, so the keys are read in place
+# passes and greedy baselines); the encoder zoo's other attention sizes
+# at the serving batch (L=49: the ResNets' block3 at 224; L=144:
+# Inception-V3, V4 and Inception-ResNet-V2 at 224); and U=4096, whose chunk
+# fits shared memory at no cluster size, so the keys are read in place
 UNSTAGED = (1, 3, 196, 4096, 8)
+ZOO_SHAPES = [(25, 3, 49, 512, 8), (25, 3, 144, 512, 8)]
 SHAPES = [(2, 3, 7, 16, 4), (3, 7, 33, 96, 3), (4, 3, 5, 64, 2),
           (2, 3, 50, 512, 1), (3, 7, 33, 90, 3), (2, 3, 20, 1024, 8),
           (1, 3, 196, 512, 8), (25, 7, 196, 512, 8), (25, 3, 197, 512, 8),
           (25, 3, 196, 512, 8), (61, 3, 196, 512, 8), (10, 7, 196, 512, 8),
-          (5, 3, 196, 512, 8), UNSTAGED]
+          (5, 3, 196, 512, 8), *ZOO_SHAPES, UNSTAGED]
 
 
 @pytest.mark.parametrize("keys_dtype", [torch.float32, torch.bfloat16])
@@ -109,12 +112,13 @@ def test_large_chunks_read_keys_in_place(card, keys_dtype):
 @pytest.mark.parametrize("rows,beams,L,U,H", [(25, 3, 196, 512, 8),
                                               (61, 3, 196, 512, 8),
                                               (5, 3, 196, 512, 8),
-                                              (3, 7, 33, 90, 3)])
+                                              (3, 7, 33, 90, 3),
+                                              *ZOO_SHAPES])
 def test_kernels_are_deterministic(card, rows, beams, L, U, H):
     """The cluster reductions run in a fixed order: the same inputs give
     bitwise the same outputs (also at the COCO-server batch of 61, where
-    the plan picks its cluster size for 183 queries, and at the overfit
-    gate's batch of 5)."""
+    the plan picks its cluster size for 183 queries, at the overfit gate's
+    batch of 5, and at the zoo's attention sizes)."""
     query, keys, mean, m2, vecs = _inputs(card, rows, beams, L, U,
                                           torch.bfloat16)
     runs = [k1.grouped_add_ln_attention(query, keys, mean, m2, *vecs,
@@ -469,3 +473,50 @@ def test_slim_converted_cnn_restores_on_card(card, tmp_path):
         assert a.dtype == b.dtype and (a == b).all(), path_
     for k, v in tfc._flatten_leaves(out["cuda"]["encoder"]["cnn"]).items():
         assert (v == tfc._flatten_leaves(cnn)[k]).all(), k
+
+
+@pytest.mark.parametrize("cnn_name", ["resnet_v1_50", "inception_v3"])
+def test_zoo_encoder_on_card_matches_cpu(card, cnn_name):
+    """One zoo encoder per preprocessing kind (VGG: mean subtraction; the
+    inception style), seeded weights with BN statistics moved, 2 seeded
+    uint8 images through preprocess_for and encode_images at 224 in
+    float32 with TF32 off: the card's embedding and attention memory
+    within 1e-4 of the CPU's scale."""
+    from comic_tpu_torch.data.preprocessing import preprocess_for
+    from comic_tpu_torch.models.encoders import encode_images, get_encoder
+
+    g = torch.Generator().manual_seed(7)
+    params = {"cnn": get_encoder(cnn_name).init(g)}
+
+    def walk(d):
+        for key, v in d.items():
+            if key == "BatchNorm":
+                n = v["beta"].shape[0]
+                v["beta"] += 0.1 * torch.randn(n, generator=g)
+                v["moving_mean"] += 0.1 * torch.randn(n, generator=g)
+            elif isinstance(v, dict):
+                walk(v)
+
+    walk(params)
+    images = torch.randint(0, 256, (2, 256, 256, 3), generator=g,
+                           dtype=torch.uint8)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in (card, torch.device("cpu")):
+            x = preprocess_for(cnn_name)(images, 224, 224, dev)
+            with torch.no_grad():
+                out[dev.type] = [t.cpu() for t in encode_images(
+                    tree_to(params, dev), x, cnn_name)]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    L = {"resnet_v1_50": 49, "inception_v3": 144}[cnn_name]
+    assert out["cuda"][1].shape == (2, L, get_encoder(cnn_name).fm_channels[
+        get_encoder(cnn_name).default_fm_endpoint])
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4

@@ -63,6 +63,11 @@ STANDALONE_MODULES = {
     "comic_tpu_torch.prepro.coco", "comic_tpu_torch.prepro.insta",
     "comic_tpu_torch.prepro.ngrams"}
 
+# the encoder zoo's modules
+ZOO_MODULES = {f"comic_tpu_torch.models.{m}" for m in (
+    "inception_v2", "inception_v3", "inception_v4", "inception_resnet_v2",
+    "resnet", "resnet_v2", "vgg", "mobilenet_v1", "mobilenet_v2", "nasnet")}
+
 # libraries that only the functions needing them import
 OPTIONAL_LIBRARIES = ("tensorflow", "tensorstore", "h5py", "PIL", "cv2")
 
@@ -78,10 +83,11 @@ def test_port_imports_no_jax_and_no_comic_tpu():
     assert out.returncode == 0, out.stderr
     names, bad, lazy = out.stdout.split(" ", 2)
     names = set(names.split(","))
-    assert len(names) >= 62
+    assert len(names) >= 72
     assert TRAINING_MODULES <= names, TRAINING_MODULES - names
     assert EVALUATION_MODULES <= names, EVALUATION_MODULES - names
     assert STANDALONE_MODULES <= names, STANDALONE_MODULES - names
+    assert ZOO_MODULES <= names, ZOO_MODULES - names
     assert bad.strip() == "[]"
     # importing every module pulls in none of the optional libraries
     assert lazy.strip() == "[]"

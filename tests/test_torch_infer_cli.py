@@ -26,6 +26,8 @@ from comic_tpu_torch import inference as tinf
 from comic_tpu_torch.cli import infer as tcli
 from comic_tpu_torch.cli import train as ttrain
 from comic_tpu_torch.configuration import Config
+from test_torch_native_ciderd import (  # noqa: F401 (fixtures)
+    assert_both_native, ciderd_used, native_ciderd)
 
 torch.set_num_threads(1)
 
@@ -125,7 +127,7 @@ def _sweep_both(tmp, data, **overrides):
 
 @pytest.mark.parametrize("style,beam", [("coco", 3), ("coco", 1),
                                         ("insta", 2)])
-def test_sweep_is_byte_identical(tmp_path, coco, style, beam):
+def test_sweep_is_byte_identical(tmp_path, coco, style, beam, ciderd_used):
     data = coco if style == "coco" else _dataset(tmp_path, style)
     out = _sweep_both(tmp_path, data, infer_beam_size=beam)
     (jres, jfiles), (tres, tfiles) = out["jax"], out["torch"]
@@ -147,9 +149,10 @@ def test_sweep_is_byte_identical(tmp_path, coco, style, beam):
     assert {type(c["image_id"]) for c in caps[0]} == \
         {int if style == "coco" else str}
     assert {"Bleu_1", "Bleu_4", "ROUGE_L", "CIDEr"} <= set(tres[name])
+    assert_both_native(ciderd_used)  # the same CIDEr-D on both sides
 
 
-def test_evaluate_model_is_byte_identical(tmp_path, coco):
+def test_evaluate_model_is_byte_identical(tmp_path, coco, ciderd_used):
     """evaluate_model on one checkpoint path, with its own pipeline."""
     from comic_tpu.inference import evaluate_model as jeval
 
@@ -166,6 +169,7 @@ def test_evaluate_model_is_byte_identical(tmp_path, coco):
         files.append(_outputs(os.path.join(log,
                                            tinf.infer_dir_name(config))))
     assert files[0] == files[1] and len(files[0]) == 4
+    assert_both_native(ciderd_used)
 
 
 def test_sweep_toggles_and_explicit_checkpoints(tmp_path, coco):

@@ -87,7 +87,34 @@ def test_conv2d_same(rng, size, k, stride):
     want = jax.lax.conv_general_dilated(
         x, w, (stride, stride), "SAME",
         dimension_numbers=("NHWC", "HWIO", "NHWC"))
-    got = tlayers.conv2d_same(_nchw(x), _t(w.transpose(3, 2, 0, 1)), stride)
+    got = tlayers.conv2d(_nchw(x), _t(w.transpose(3, 2, 0, 1)), stride)
+    np.testing.assert_allclose(_nhwc(got), want, **TOL)
+
+
+@pytest.mark.parametrize("kh,kw,stride,padding", [
+    (1, 7, 1, "SAME"), (7, 1, 1, "SAME"), (3, 3, 2, "VALID"),
+    (1, 3, 2, "SAME"), (5, 5, 1, "VALID")])
+def test_conv2d_any_kernel_and_padding(rng, kh, kw, stride, padding):
+    """The factorized 1x7/7x1 kernels and VALID convs of the zoo."""
+    x = rng.normal(size=(2, 12, 11, 3)).astype(np.float32)
+    w = rng.normal(size=(kh, kw, 3, 5)).astype(np.float32)
+    want = jax.lax.conv_general_dilated(
+        x, w, (stride, stride), padding,
+        dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    got = tlayers.conv2d(_nchw(x), _t(w.transpose(3, 2, 0, 1)), stride,
+                         padding)
+    np.testing.assert_allclose(_nhwc(got), want, **TOL)
+
+
+@pytest.mark.parametrize("size,k,stride,padding", [
+    (8, 3, 1, "SAME"), (9, 3, 2, "SAME"), (8, 3, 2, "SAME"),
+    (7, 3, 2, "VALID"), (5, 5, 1, "SAME")])
+def test_avg_pool_divides_by_in_bounds_count(rng, size, k, stride, padding):
+    """TF's average pool (comic_tpu's layers.avg_pool_same): a window at the
+    edge divides by its in-bounds elements, with TF's asymmetric pads."""
+    x = rng.normal(size=(2, size, size + 1, 4)).astype(np.float32)
+    want = jlayers.avg_pool_same(x, k, stride, padding)
+    got = tlayers.avg_pool(_nchw(x), k, stride, padding)
     np.testing.assert_allclose(_nhwc(got), want, **TOL)
 
 
@@ -96,7 +123,7 @@ def test_conv2d_same(rng, size, k, stride):
 def test_max_pool_same(rng, size, k, stride):
     x = rng.normal(size=(2, size, size, 4)).astype(np.float32)
     want = jinc._max_pool(x, k, stride)
-    got = tlayers.max_pool_same(_nchw(x), k, stride)
+    got = tlayers.max_pool(_nchw(x), k, stride)
     np.testing.assert_array_equal(_nhwc(got), want)
 
 
@@ -112,8 +139,8 @@ def test_conv_bn_relu(rng, stride):
     p = _conv_params(rng, 3, 4, 6)
     x = rng.normal(size=(2, 9, 9, 4)).astype(np.float32)
     want = jinc._conv_bn_relu(p, x, stride)
-    got = tlayers.conv_bn_relu(bridge.from_jax_tree(p, "cpu"), _nchw(x),
-                               stride, jinc.BN_EPS)
+    got = tlayers.conv_bn(bridge.from_jax_tree(p, "cpu"), _nchw(x),
+                          stride, jinc.BN_EPS)
     np.testing.assert_allclose(_nhwc(got), want, **TOL)
 
 

@@ -25,6 +25,8 @@ from comic_tpu_torch.evaluation.ids import id_sort_key
 from comic_tpu_torch.evaluation.scorers import CaptionScorer as TScorer
 from comic_tpu_torch.tokenization import Vocabulary, build_char_vocab
 from comic_tpu_torch.tokenization import caption_strings_to_batched_ids
+from test_torch_native_ciderd import (  # noqa: F401 (fixtures)
+    assert_both_native, ciderd_used, native_ciderd)
 
 EXACT = dict(rtol=1e-12, atol=1e-12)
 WORDS = ["a", "man", "dog", "riding", "on", "the", "beach", "red", "bike",
@@ -141,7 +143,7 @@ def test_native_ciderd_matches_python(idf_cache, mode):
 @pytest.mark.parametrize("best_hypo_only", [False, True])
 @pytest.mark.parametrize("with_idf", [False, True])
 def test_caption_scorer_matches(idf_cache, weights, best_hypo_only,
-                                with_idf):
+                                with_idf, ciderd_used):
     """get_hypo_scores at batch 12 x beam 7 (96 keys): hypotheses, sample
     and greedy scores equal comic_tpu's; the port runs the native
     CIDEr-D and says so."""
@@ -159,6 +161,8 @@ def test_caption_scorer_matches(idf_cache, weights, best_hypo_only,
     np.testing.assert_allclose(got[1], want[1], **EXACT)
     np.testing.assert_allclose(got[2], want[2], **EXACT)
     assert got[1].shape == ((12,) if best_hypo_only else (84,))
+    if "ciderD" in weights:
+        assert_both_native(ciderd_used)
 
 
 def test_caption_scorer_refuses_what_comic_tpu_refuses():

@@ -34,6 +34,8 @@ from comic_tpu_torch.tokenization import Vocabulary
 from comic_tpu_torch.training import checkpoints as tckpt
 from comic_tpu_torch.training import optimizer as topt
 from comic_tpu_torch.training import scst as tscst
+from test_torch_native_ciderd import (  # noqa: F401 (fixtures)
+    assert_both_native, ciderd_used, native_ciderd)
 
 torch.set_num_threads(1)
 
@@ -66,7 +68,7 @@ def _word_case():
     return refs, greedy, beam
 
 
-def test_score_and_encode_matches():
+def test_score_and_encode_matches(ciderd_used):
     refs, greedy, beam = _word_case()
     got = tscst.score_and_encode(
         CaptionScorer(None, {"ciderD": 1.0, "bleu": [0, 0, 0, 2]}),
@@ -82,6 +84,7 @@ def test_score_and_encode_matches():
     assert got[2] == want[2]
     np.testing.assert_array_equal(got[0][0], [4, 0, 1, 2, 5, -1])
     assert got[1][0] > got[1][2]  # the exact reference scores highest
+    assert_both_native(ciderd_used)
 
 
 def test_scores_keep_numeric_order_beyond_ten_images(tmp_path):
@@ -114,7 +117,7 @@ def test_scores_keep_numeric_order_beyond_ten_images(tmp_path):
     assert len(set(np.round(s_all, 9))) > 3  # the images do score apart
 
 
-def test_hypotheses_reach_train_step_image_major():
+def test_hypotheses_reach_train_step_image_major(ciderd_used):
     """The scorer works beam-major (row k*B + i) but the train step
     repeats encoder outputs IMAGE-major (row i*K + k, repeat_interleave):
     _finish_step must pair hypothesis (image i, beam k) with image i's
@@ -147,6 +150,7 @@ def test_hypotheses_reach_train_step_image_major():
         JVocabulary(dict(WTOI)), 6)
     np.testing.assert_array_equal(hypo, np.asarray(want[0]))
     np.testing.assert_array_equal(captured["rewards"], np.asarray(want[1]))
+    assert_both_native(ciderd_used)
     # the train step repeats the encoder rows image-major
     rows = torch.arange(2.0)[:, None]
     assert rows.repeat_interleave(2, dim=0)[:, 0].tolist() == [0, 0, 1, 1]

@@ -1,7 +1,8 @@
 """comic_tpu_torch's TF-checkpoint restores against comic_tpu's on the CPU,
 on TF1-format checkpoints written here with tf.compat.v1: a slim
 Inception-V1 ImageNet checkpoint (mode 'cnn', by file, by directory and
-through convert_slim_checkpoint and net_params), reference COMIC TF1
+through convert_slim_checkpoint and net_params; and of two zoo encoders,
+one with depthwise kernels), reference COMIC TF1
 models (default radix and legacy word tokens; load_compact, restore_model
 mode 'model', convert_reference_checkpoint), the failures and skips of
 both converters, and retention beside TF checkpoints.
@@ -156,13 +157,39 @@ def test_convert_slim_checkpoint_matches_comic_tpu(slim, tmp_path):
     got, _, mode = tckpt.restore_model(init_t, out_t)
     assert mode == "cnn"
     _equal(bridge.to_jax_tree(got)["encoder"]["cnn"], cnn)
-    # a zoo encoder the port lacks still says so, before reading anything
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttfc.convert_slim_checkpoint(path, str(tmp_path / "r.msgpack"),
-                                     "resnet_v1_50")
+    # a checkpoint of another encoder: both find none of its variables
+    for tfc in (ttfc, jtfc):
+        with pytest.raises(KeyError, match="Missing converted variable"):
+            tfc.convert_slim_checkpoint(path, str(tmp_path / "r.msgpack"),
+                                        "resnet_v1_50")
     with pytest.raises(ValueError, match="No converter wiring"):
         ttfc.convert_slim_checkpoint(path, str(tmp_path / "r.msgpack"),
                                      "alexnet")
+
+
+@pytest.mark.parametrize("cnn_name", ["mobilenet_v1", "resnet_v2_50"])
+def test_convert_zoo_slim_checkpoints_match_comic_tpu(tmp_path, cnn_name):
+    """Slim checkpoints of zoo encoders (depthwise kernels under
+    MobilenetV1/, a pre-activation ResNet): both converters write the same
+    bytes, and the port's restore through the bridge gives comic_tpu's
+    tree."""
+    rng = np.random.default_rng(2)
+    cnn = _rand_like(rng, jax.eval_shape(jget_encoder(cnn_name).init,
+                                         jax.random.PRNGKey(0)))
+    ckpt = _save_slim(str(tmp_path), _flatten(cnn, jtfc.ROOT_SCOPES[cnn_name]),
+                      f"{cnn_name}.ckpt")
+    out_t = ttfc.convert_slim_checkpoint(ckpt, str(tmp_path / "t.msgpack"),
+                                         cnn_name)
+    out_j = jtfc.convert_slim_checkpoint(ckpt, str(tmp_path / "j.msgpack"),
+                                         cnn_name)
+    with open(out_t, "rb") as a, open(out_j, "rb") as b:
+        assert a.read() == b.read()
+    spec = tcap.build_model_spec(Config(cnn_name=cnn_name, **RADIX),
+                                 Vocabulary(dict(_vocab().wtoi)))
+    got, _, mode = tckpt.restore_model(tcap.init_params(spec, device="cpu"),
+                                       out_t)
+    assert mode == "cnn"
+    _equal(bridge.to_jax_tree(got)["encoder"]["cnn"], _np(cnn))
 
 
 def test_net_params_match_comic_tpu(slim, tmp_path):

@@ -289,17 +289,31 @@ def test_bucket_helpers_match(synth):
     rows = [np.arange(k, dtype=np.int32) for k in (1, 4, 7)]
     np.testing.assert_array_equal(tpipe.pad_rows(rows, 5),
                                   jpipe.pad_rows(rows, 5))
-    for training in (True, False):  # the port has the inception family
-        jc, tc = _configs(synth, cnn_name="inception_v1")
-        assert tpipe.host_resize_mode(tc, training) == \
-            jpipe.host_resize_mode(jc, training) == "square"
+    for cnn, modes in (("inception_v1", ("square", "square")),
+                       ("mobilenet_v2", ("square", "square")),
+                       ("vgg_16", ("aspect_train", "aspect_eval")),
+                       ("resnet_v2_50", ("aspect_train", "aspect_eval"))):
+        jc, tc = _configs(synth, cnn_name=cnn)
+        for training, mode in zip((True, False), modes):
+            assert tpipe.host_resize_mode(tc, training) == \
+                jpipe.host_resize_mode(jc, training) == mode
 
 
 def test_pipelines_refuse_what_is_not_ported(synth, monkeypatch):
-    _, tc = _configs(synth, cnn_name="vgg_16")
+    """The VGG/ResNet host modes are ported: the pipelines build loaders in
+    comic_tpu's modes, seeded from the config; what stays refused is an
+    eval batch that does not tile its split and a multi-process job."""
+    jc, tc = _configs(synth, cnn_name="vgg_16")
     tv = tcap_io.load_vocab(synth, "synth_{}")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpipe.TrainPipeline(tc, tv, "train")
+    for split, mode in (("train", "aspect_train"), ("valid", "aspect_eval")):
+        tp = tpipe.TrainPipeline(tc, tv, split)
+        jp = jpipe.TrainPipeline(jc, jcap_io.load_vocab(synth, "synth_{}"),
+                                 split)
+        assert tp.loader.mode == jp.loader.mode == mode
+        tp.close()
+    scst = tpipe.ScstPipeline(tc, tv)
+    assert scst.loader.mode == "aspect_train"
+    scst.close()
     _, tc = _configs(synth, batch_size_eval=4)
     with pytest.raises(ValueError, match="divide"):
         tpipe.TrainPipeline(tc, tv, "valid")
