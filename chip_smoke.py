@@ -30,7 +30,17 @@ Phases (any failure raises and exits non-zero):
   9. train-agree: one float32 train step (TF32 off, batch 2, nothing
      frozen, dropout and augment off) on the card and on the CPU from the
      same parameters; loss and updated parameters must agree;
- 10. train-scst: the training CLI's scst stage (batch 10, beam 7, lr 1e-3,
+ 10. trace: the decoder stage as in phase 7 for TRACE_STEPS steps with
+     --profile_dir (the step tracer): one TensorBoard trace with exactly
+     three ProfilerStep spans and CUDA kernels inside them; the device
+     busy share of the traced window read from the trace;
+ 11. cost-model: comic_tpu_torch.utils.roofline.count_costs of a steady
+     serve-beam3 batch (25 images, 60 fixed steps, K1 on every step) and
+     of one train-decoder step at batch 32, in calls apart from the
+     timed ones; gflops, mfu, hbm_gb_lower and hbm_util_lower against
+     the same programs' measured ms and the H100's peaks; then phase 6's
+     serve counted on the card and on the CPU, every field equal;
+ 12. train-scst: the training CLI's scst stage (batch 10, beam 7, lr 1e-3,
      the CNN frozen, CIDEr-D weight 1 and BLEU-4 weight 2, bf16) through
      comic_tpu_torch.training.scst.train_fn_scst for 20 steps from the
      cnn_finetune stage's directory, on in-memory batches of 10 images
@@ -41,11 +51,11 @@ Phases (any failure raises and exits non-zero):
      then the step's rollout, host scoring and train step timed apart,
      also at the caps (both decodes without early exit; the train step on
      hypotheses of the references' lengths), and profiled;
- 11. scst-agree: one SCST step at batch 2, beam 7, float32, TF32 off,
+ 13. scst-agree: one SCST step at batch 2, beam 7, float32, TF32 off,
      dropout and augment off, on the card and on the CPU from the same
      parameters and images: greedy and all-beam ids and the rewards
      exactly equal, the loss and updated parameters within TOL_TRAIN;
- 12. eval-sweep: the infer CLI (comic_tpu_torch.cli.infer.main) over an
+ 14. eval-sweep: the infer CLI (comic_tpu_torch.cli.infer.main) over an
      experiment directory (config.pkl at COMIC-256 defaults, bf16; the
      smoke weights' and the decoder stage's compact checkpoints) on
      in-memory images with a COCO annotations JSON of 5 random references
@@ -57,10 +67,10 @@ Phases (any failure raises and exits non-zero):
      be finite, the peak device memory stay flat from the first checkpoint
      to the last, and the scores-only call repeat the first call's scores;
      decode and scoring seconds printed per checkpoint;
- 13. eval-agree: sweep_checkpoints over one checkpoint at batch 2, beam 3,
+ 15. eval-agree: sweep_checkpoints over one checkpoint at batch 2, beam 3,
      float32, TF32 off, 4 images, on the card and on the CPU: the caption
      JSON and metric_scores.txt byte-identical;
- 14. overfit-gate: tests/test_overfit_gate.py at COMIC-256 width (bf16):
+ 16. overfit-gate: tests/test_overfit_gate.py at COMIC-256 width (bf16):
      the port's synthetic fixture (10 solid-colour images, the test split
      mirroring train) in memory; the decoder stage restored in mode 'cnn'
      from the smoke weights' CNN written under slim names and converted by
@@ -70,7 +80,7 @@ Phases (any failure raises and exits non-zero):
      |reward| < 5 and CIDEr > 4. K1 launches in the sweeps and the SCST
      rollouts, K2 in the eval passes and the greedy baselines, neither in
      a train step;
- 15. zoo-serve: every encoder comic_tpu registers (20 --cnn_name values)
+ 17. zoo-serve: every encoder comic_tpu registers (20 --cnn_name values)
      at 224 in bf16 with COMIC-256's decoder: seeded port weights with BN
      statistics perturbed, a compact checkpoint, and 2 batches of 25
      seeded images through run_inference at beam 3; K1 must launch once
@@ -79,10 +89,10 @@ Phases (any failure raises and exits non-zero):
      ms, captions/s, launches and peak memory. resnet_v1_50 and
      inception_v3 (one of each preprocessing kind) also serve a batch
      greedy, with K2 on every step;
- 16. zoo-agree: one encoder of each module, float32 with TF32 off, batch
+ 18. zoo-agree: one encoder of each module, float32 with TF32 off, batch
      2, beam 3, card vs the port's CPU path: the attention memory within
      TOL_ZOO of its scale and the top-beam ids equal;
- 17. zoo-train: 10 steps of the training CLI's cnn_finetune stage with
+ 19. zoo-train: 10 steps of the training CLI's cnn_finetune stage with
      resnet_v1_50 at batch 32 (the VGG train augmentation on the card and
      the backward of slim's fixed-pad strided convs): finite losses, the
      checkpoints, 0 kernel launches in every train step, K2 in the eval
@@ -131,6 +141,9 @@ B, K, L, U, H = 25, 3, 196, 512, 8
 # is K2's rows in the eval-perplexity pass), and the steps each stage takes
 TRAIN_B, EVAL_B = 32, 61
 DECODER_STEPS, CNNFT_STEPS = 20, 10
+# the trace phase: the decoder stage's steps with --profile_dir, enough for
+# the StepTracer's window over the loop's calls [10, 13) to close
+TRACE_STEPS = 14
 # the SCST stage: the CLI's batch and beam, the steps the smoke takes, the
 # references per image
 SCST_B, SCST_K, SCST_STEPS, SCST_REFS = 10, 7, 20, 5
@@ -703,11 +716,11 @@ class CountedEval:
         self.pipe.close()
 
 
-def stage_argv(stage, ckpt_path=None, cnn_name="inception_v1"):
+def stage_argv(stage, ckpt_path=None, cnn_name="inception_v1", name=None):
     """The training CLI's command line of the smoke's ``stage`` (the
     encoder zoo's runs are named 'zoo')."""
-    argv = ["--train_mode", stage,
-            "--name", "smoke" if cnn_name == "inception_v1" else "zoo",
+    name = name or ("smoke" if cnn_name == "inception_v1" else "zoo")
+    argv = ["--train_mode", stage, "--name", name,
             "--cnn_name", cnn_name, "--log_root", os.path.join(OUT, "train"),
             "--dataset_dir", os.path.join(OUT, "train", "data")]
     if stage == "decoder":
@@ -715,15 +728,17 @@ def stage_argv(stage, ckpt_path=None, cnn_name="inception_v1"):
     return argv
 
 
-def train_phase(stage, steps, ckpt_path, kernels, cnn_name="inception_v1"):
+def train_phase(stage, steps, ckpt_path, kernels, cnn_name="inception_v1",
+                tag=None, extra_argv=()):
     """Phases train-decoder / train-cnnft: the stage's config from the
     training CLI's own stage chain (comic_tpu_torch.cli.train), at
     COMIC-256 defaults (bf16, dropout, alignment dropout, augment), then
     train_fn on the card for ``steps`` steps on in-memory batches, saving
     a full and a compact checkpoint and running one eval-perplexity pass
     of 2 x 61 rows at the end. K1 and K2 must launch 0 times in the train
-    steps; K2 must launch in the eval pass. -> (eval launches per kernel,
-    summary)"""
+    steps; K2 must launch in the eval pass. A ``tag`` names the run (its
+    experiment too); ``extra_argv`` adds flags to its command line. ->
+    (eval launches per kernel, summary)"""
     import numpy as np
     import torch
 
@@ -731,9 +746,10 @@ def train_phase(stage, steps, ckpt_path, kernels, cnn_name="inception_v1"):
     from comic_tpu_torch.data.pipeline import TrainPipeline
     from comic_tpu_torch.tokenization import Vocabulary
 
-    stage_fn, config = stage_config(stage_argv(stage, ckpt_path, cnn_name))
-    tag = ("zoo-train" if cnn_name != "inception_v1" else
-           {"decoder": "train-decoder", "cnn_finetune": "train-cnnft"}[stage])
+    stage_fn, config = stage_config(
+        stage_argv(stage, ckpt_path, cnn_name, tag) + list(extra_argv))
+    tag = tag or ("zoo-train" if cnn_name != "inception_v1" else {
+        "decoder": "train-decoder", "cnn_finetune": "train-cnnft"}[stage])
     vocab_cfg = smoke_config(1, B, "bfloat16")
     config.update(wtoi=vocab_cfg.wtoi, itow=vocab_cfg.itow,
                   vocab_size=len(vocab_cfg.itow))
@@ -796,17 +812,21 @@ def train_phase(stage, steps, ckpt_path, kernels, cnn_name="inception_v1"):
           f"{2 * EVAL_B} rows; launches in the train steps "
           f"{dict(zip(names, train_launches))}, in the eval pass "
           f"{dict(zip(names, eval_launches))}")
+    summary = {"head": head, "tail": tail, "losses": losses,
+               "log_path": config.log_path, "step_ms": med}
+    if tag == "train-decoder":  # the program the cost model counts
+        summary["train_step"] = stage_train_step(config, vocab, train_pipe)
     profile_train_step(config, vocab, train_pipe, tag)
     train_pipe.close()
     eval_pipe.close()
-    return eval_launches, {"head": head, "tail": tail, "losses": losses,
-                           "log_path": config.log_path}
+    return eval_launches, summary
 
 
-def profile_train_step(config, vocab, train_pipe, tag):
-    """Two more train steps of the stage from its saved compact weights,
-    then one under torch.profiler: device busy time against the wall and
-    the top kernels (table in smoke_out/profile_<tag>.txt)."""
+def stage_train_step(config, vocab, train_pipe):
+    """-> (step, args): ``step(*args)`` -> (state, metrics) is a train step
+    of the stage on the card from its saved compact weights (learning rate
+    lr_end) on one batch of ``train_pipe``; the parameters update in
+    place, so each call with the same args takes one more step."""
     import torch
 
     from comic_tpu_torch.models.captioner import build_model_spec, init_params
@@ -823,11 +843,19 @@ def profile_train_step(config, vocab, train_pipe, tag):
     step = make_train_step(spec, config, tuple(config.cnn_input_size))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     images, caps = next(iter(train_pipe))
-    state = [TrainState(params, opt, 0)]
+    return ((lambda state, images, caps: step(state, images, caps, gen)),
+            (TrainState(params, opt, 0), images, caps))
+
+
+def profile_train_step(config, vocab, train_pipe, tag):
+    """Two more train steps of the stage from its saved compact weights,
+    then one under torch.profiler: device busy time against the wall and
+    the top kernels (table in smoke_out/profile_<tag>.txt)."""
+    step, args = stage_train_step(config, vocab, train_pipe)
+    caps = args[2]
 
     def one(*_):
-        state[0], metrics = step(state[0], images, caps, gen)
-        return metrics
+        return step(*args)[1]
 
     for _ in range(2):
         float(one()["total_loss"])
@@ -911,6 +939,180 @@ def train_agree_phase(ckpt_state):
     if not (loss_rel <= TOL_TRAIN and worst <= TOL_TRAIN
             and np.isfinite(out["cuda"][0])):
         raise AssertionError("the card's train step disagrees with the CPU's")
+
+
+def trace_phase(ckpt_path, kernels):
+    """Phase trace: the training CLI's decoder stage (batch 32, COMIC-256,
+    bf16) with --profile_dir for TRACE_STEPS steps through train_fn, as
+    train-decoder runs it (train_phase's checks). Its StepTracer writes one
+    TensorBoard trace of the loop's calls [10, 13): exactly three
+    ProfilerStep spans with CUDA kernels inside them; the device busy
+    share of the traced window is read from the trace. A profiler that
+    fails raises out of train_fn. -> eval launches per kernel"""
+    import glob
+
+    trace_dir = os.path.join(OUT, "trace")
+    eval_launches, run = train_phase(
+        "decoder", TRACE_STEPS, ckpt_path, kernels, tag="trace",
+        extra_argv=["--profile_dir", trace_dir])
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace: {len(files)} trace files in "
+                             f"{trace_dir}, expected 1")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith("ProfilerStep#")),
+                   key=lambda e: e["ts"])
+    if len(spans) != 3:
+        raise AssertionError(f"trace: {len(spans)} ProfilerStep spans, "
+                             "expected 3")
+    t0 = spans[0]["ts"]
+    t1 = max(e["ts"] + e["dur"] for e in spans)
+    device = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["cat"])
+                    for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                    and t0 <= e["ts"] < t1)
+    n_kernels = sum(cat == "kernel" for _, _, cat in device)
+    if not n_kernels:
+        raise AssertionError("trace: no CUDA kernel inside the traced steps")
+    busy, last = 0.0, t0  # the union of the device spans, cut at t1
+    for start, end, _ in device:
+        end = min(end, t1)
+        if end > last:
+            busy += end - max(start, last)
+            last = end
+    window = t1 - t0
+    print(f"trace: {TRACE_STEPS} steps of the decoder stage at batch "
+          f"{TRAIN_B} with --profile_dir; one trace file "
+          f"({os.path.getsize(files[0]) / 2**20:.1f} MiB) holding "
+          f"{len(spans)} ProfilerStep spans of "
+          + ", ".join(f"{e['dur'] / 1e3:.2f}" for e in spans)
+          + f" ms, {n_kernels} CUDA kernels in them; device busy "
+          f"{busy / 1e3:.2f} ms of the {window / 1e3:.2f} ms window "
+          f"({busy / window:.1%}); the run's steady steps "
+          f"{run['step_ms']:.2f} ms median (train_fn's log, traced steps "
+          "included)")
+    return eval_launches
+
+
+def cost_model_phase(ckpt_path, state, train_step, kernels, smi):
+    """Phase cost-model: count two full-width programs (COMIC-256, bf16)
+    with comic_tpu_torch.utils.roofline.count_costs, each in a call apart
+    from the timed ones, and derive utilization_fields from the measured
+    ms of the same program uncounted: a steady serve-beam3 batch (B
+    images, beam 3, 60 fixed steps, K1 on every step) and one
+    train-decoder step at batch 32 (train_step: the stage's own). Then
+    agreement_phase's serve (batch 2, beam 3, float32, 60 fixed steps)
+    counted on the card, where K1 runs, and on the CPU, where the torch
+    ops run: every field equal. -> launches per kernel"""
+    import torch
+
+    from comic_tpu_torch.inference import make_serve_fn
+    from comic_tpu_torch.models.captioner import (
+        build_model_spec,
+        init_params,
+        max_decode_steps,
+        tree_to,
+    )
+    from comic_tpu_torch.tokenization import Vocabulary
+    from comic_tpu_torch.training.checkpoints import load_compact
+    from comic_tpu_torch.utils.roofline import (
+        H100_SXM_HBM_BYTES_PER_S,
+        H100_SXM_PEAK_BF16_FLOPS,
+        add_ln_attention_cost,
+        count_costs,
+        utilization_fields,
+    )
+
+    k1 = kernels[0]
+    start = [k.launches for k in kernels]
+
+    def serve_fn(batch, dtype, device):
+        config = smoke_config(3, batch, dtype)
+        config.update(infer_early_exit=False)
+        vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+        spec = build_model_spec(config, vocab)
+        steps = max_decode_steps(config, vocab)
+        return spec, steps, make_serve_fn(spec, config, steps,
+                                          collect_alignments=False,
+                                          device=device)
+
+    def report(tag, cost, ms, items, what):
+        fields = utilization_fields(cost, ms, per_call_items=items)
+        t = ms / 1e3
+        print(f"cost-model {tag} ({what}): {ms:.2f} ms uncounted; "
+              f"gflops {cost.mxu_flops / 1e9:.3f}, mfu "
+              f"{cost.mxu_flops / t / H100_SXM_PEAK_BF16_FLOPS:.6f}, "
+              f"hbm_gb_lower {cost.bytes_lower / 1e9:.4f}, hbm_util_lower "
+              f"{cost.bytes_lower / t / H100_SXM_HBM_BYTES_PER_S:.6f} "
+              f"against the H100 SXM's BF16 tensor-core and HBM3 peaks; "
+              f"{smi}; utilization_fields {json.dumps(fields)}")
+        return fields
+
+    # serve-beam3: the steady batch of serve_phase with a fixed loop
+    spec, steps, serve = serve_fn(B, "bfloat16", "cuda")
+    params = load_compact(ckpt_path, init_params(spec, device="cuda"))
+    images = image_batches(1, B)[0][0]
+    serve(params, images)  # the first call's set-up is not a steady batch
+    before = k1.launches
+    cost = count_costs(serve, params, images)
+    counted = k1.launches - before
+    per_step = add_ln_attention_cost(
+        torch.empty((B, K, U), device="meta"),
+        torch.empty((B, L, U), dtype=torch.bfloat16, device="meta"), H)
+    if counted != steps or cost.by_primitive.get(k1.__name__) != \
+            steps * per_step.matmul_flops:
+        raise AssertionError(
+            f"cost-model: K1 launched {counted} times in a {steps}-step "
+            f"serve, counted {cost.by_primitive.get(k1.__name__)} flops")
+    ms = median_ms(lambda: serve(params, images), iters=5, warmup=1)
+    serve_fields = report("serve-beam3", cost, ms, B,
+                          f"batch {B}, beam 3, {steps} fixed steps, bf16; "
+                          f"K1 {counted} launches in the counted call")
+
+    # train-decoder: one step of the stage at batch 32
+    step, args = train_step
+    for _ in range(2):
+        float(step(*args)[1]["total_loss"])
+    before = [k.launches for k in kernels]
+    cost = count_costs(step, *args)
+    if [k.launches for k in kernels] != before:
+        raise AssertionError("cost-model: a kernel launched in a train step")
+    ms = median_ms(lambda: step(*args), iters=10, warmup=2)
+    train_fields = report("train-decoder", cost, ms, TRAIN_B,
+                          f"batch {TRAIN_B}, the decoder stage's step with "
+                          "its backward and Adam update")
+
+    # the count does not depend on the route: the card (K1) vs the CPU
+    images = image_batches(1, 2)[0][0]
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        _, steps, serve = serve_fn(2, "float32", dev)
+        before = k1.launches
+        counts[dev] = count_costs(serve, tree_to(state, torch.device(dev)),
+                                  images)
+        if k1.launches - before != (steps if dev == "cuda" else 0):
+            raise AssertionError(f"cost-model: K1 launched "
+                                 f"{k1.launches - before} times on {dev}")
+    fields = ("matmul_flops", "conv_flops", "vpu_elems", "bytes_lower",
+              "bytes_upper", "by_primitive")
+    differ = [f for f in fields if getattr(counts["cuda"], f)
+              != getattr(counts["cpu"], f)]
+    if differ:
+        raise AssertionError(
+            "cost-model: the card's count differs from the CPU's in "
+            + "; ".join(f"{f}: {getattr(counts['cuda'], f)} against "
+                        f"{getattr(counts['cpu'], f)}" for f in differ))
+    c = counts["cuda"]
+    print(f"cost-model card vs CPU (batch 2, beam 3, float32, {steps} fixed "
+          f"steps): every field equal (matmul {c.matmul_flops:.0f}, conv "
+          f"{c.conv_flops:.0f} flops, {c.vpu_elems:.0f} elements, bytes "
+          f"{c.bytes_lower:.0f} to {c.bytes_upper:.0f}, "
+          f"{len(c.by_primitive)} operations by name)")
+    print("cost-model: " + json.dumps({"serve-beam3": serve_fields,
+                                        "train-decoder": train_fields}))
+    return [k.launches - s for k, s in zip(kernels, start)]
 
 
 def scst_records(n_images):
@@ -2042,6 +2244,16 @@ def main():
     for i, k in enumerate(kernels):
         records[k.__name__]["launches"] += dec_eval[i] + ft_eval[i]
     train_agree_phase(state)
+
+    # the step tracer on the decoder stage, then the cost model on the
+    # serve and train programs
+    traced = trace_phase(ckpt_path, kernels)
+    counted = cost_model_phase(ckpt_path, state, dec.pop("train_step"),
+                               kernels, smi)
+    for i, k in enumerate(kernels):
+        records[k.__name__]["launches"] += traced[i] + counted[i]
+        records[k.__name__]["trace_launches"] = traced[i]
+        records[k.__name__]["cost_model_launches"] = counted[i]
 
     # SCST from the cnn_finetune stage's directory
     scst_launches = train_scst_phase(kernels)

@@ -100,7 +100,8 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--train_steps_per_call", type=int, default=1,
                    help="XE train steps between two log/save checks.")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="Step tracer directory (not yet ported).")
+                   help="torch.profiler trace dir (captures a few train "
+                        "iterations for the TensorBoard trace viewer).")
     return p
 
 

@@ -112,7 +112,8 @@ _DEFAULTS: Dict[str, Any] = dict(
     num_data_shards=0,  # cap on the data-parallel mesh size (0 = all
                         # devices that divide the batch)
     train_steps_per_call=1,  # XE steps per host dispatch (lax.scan of K)
-    profile_dir=None,  # jax.profiler trace dir (steps 10-12 of XE train)
+    profile_dir=None,  # torch.profiler trace dir (3 XE train iterations
+                       # from the 12th)
     scst_overlap=True,  # overlap host CIDEr scoring with the next rollout
                         # (one-step-stale sampling; False = strict
                         # on-policy reference schedule)

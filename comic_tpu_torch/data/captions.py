@@ -77,3 +77,10 @@ def infer_file_list(dataset_dir: str, infer_set: str,
             pjoin(sub, fn) for fn in os.listdir(d)
             if fn.lower().endswith(IMAGE_EXTENSIONS))
     raise ValueError(f"Unknown infer_set: {infer_set}")
+
+
+def coco_image_id(filepath: str) -> int:
+    """MS-COCO image id from a filename like COCO_val2014_000000123456.jpg
+    (reference regex P_COCO, src/infer_fn.py:33)."""
+    stem = os.path.splitext(os.path.basename(filepath))[0]
+    return int(stem.split("_")[-1])

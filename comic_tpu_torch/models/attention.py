@@ -23,6 +23,7 @@ import torch
 
 from ..ops.fused_attention import fused_add_ln_attention
 from ..ops.grouped_attention import grouped_add_ln_attention
+from ..utils import roofline
 from .layers import (
     dense_apply,
     dense_init,
@@ -172,18 +173,32 @@ def _probability(cfg: AttentionConfig, score: torch.Tensor) -> torch.Tensor:
 
 def _kernel_domain(p: Params, cfg: AttentionConfig, memory: AttentionMemory,
                    proj_q: torch.Tensor) -> bool:
-    """True where a kernel may take the step: CUDA keys, the kernels'
-    configuration, and no input that autograd must differentiate. The
-    kernels are forward-only (their outputs carry no grad_fn), as the
-    Pallas kernels are; a training step takes the torch ops below."""
-    if not (memory.keys.is_cuda and cfg.alignment == "add_LN"
-            and cfg.probability == "softmax" and cfg.fm_projection == "tied"
-            and cfg.scale and memory.key_mean is not None):
+    """True where the step is a kernel's work: the kernels' configuration,
+    and no input that autograd must differentiate (on the card the kernel
+    then takes it). The kernels are forward-only (their outputs carry no
+    grad_fn), as the Pallas kernels are; a training step takes the torch
+    ops below."""
+    if not (cfg.alignment == "add_LN" and cfg.probability == "softmax"
+            and cfg.fm_projection == "tied" and cfg.scale
+            and memory.key_mean is not None):
         return False
     inputs = (proj_q, memory.keys, memory.key_mean, memory.key_m2, p["v"],
               p["ln"]["scale"], p["ln"]["bias"], p["softmax_temperature"])
     return not (torch.is_grad_enabled()
                 and any(t.requires_grad for t in inputs))
+
+
+def _as_kernel(ops, p: Params, cfg: AttentionConfig,
+               memory: AttentionMemory, proj_q: torch.Tensor):
+    """``ops(p, cfg, memory, proj_q)``: the torch operations that stand in
+    for a kernel off the card. Under roofline.count_costs they count as the
+    kernel's work (roofline.add_ln_attention_cost), as the kernel's wrapper
+    reports it on the card, so that a count does not depend on the route."""
+    if roofline.ACTIVE is None:
+        return ops(p, cfg, memory, proj_q)
+    return roofline.ACTIVE.kernel(
+        roofline.add_ln_attention_cost(proj_q, memory.keys, cfg.num_heads),
+        ops, p, cfg, memory, proj_q)
 
 
 def _head_sums(score: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -210,14 +225,28 @@ def attend(p: Params, cfg: AttentionConfig, query: torch.Tensor,
     """
     dropout = alignments_keep_mask is not None and alignments_keep_prob < 1.0
     proj_q = dense_apply(p["query_layer"], query, dtype=dtype)
-    if not dropout and _kernel_domain(p, cfg, memory, proj_q):
+    if dropout or not _kernel_domain(p, cfg, memory, proj_q):
+        context, alignments = _attend_ops(p, cfg, memory, proj_q,
+                                          alignments_keep_mask,
+                                          alignments_keep_prob)
+    elif memory.keys.is_cuda:
         context, alignments = fused_add_ln_attention(
             proj_q, memory.keys, p["v"], p["ln"]["scale"], p["ln"]["bias"],
             p["softmax_temperature"], num_heads=cfg.num_heads)
-        if cfg.context_layer:
-            context = dense_apply(p["a_layer"], context, dtype=dtype)
-        return context, alignments
+    else:
+        context, alignments = _as_kernel(_attend_ops, p, cfg, memory, proj_q)
+    if cfg.context_layer:
+        context = dense_apply(p["a_layer"], context, dtype=dtype)
+    return context, alignments
 
+
+def _attend_ops(p: Params, cfg: AttentionConfig, memory: AttentionMemory,
+                proj_q: torch.Tensor,
+                alignments_keep_mask: Optional[torch.Tensor] = None,
+                alignments_keep_prob: float = 1.0,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """attend's torch ops from the projected query -> (context (B, U) f32
+    before the context layer, alignments (B, H, L))."""
     proj_q = proj_q[:, None, :].to(memory.keys.dtype)
     if cfg.alignment == "add_LN" and memory.key_mean is not None:
         score = _add_ln_scores_fast(p, cfg, memory, proj_q)[:, 0]  # (B,H,L)
@@ -239,7 +268,7 @@ def attend(p: Params, cfg: AttentionConfig, query: torch.Tensor,
 
     alignments = _probability(cfg, score)  # (B, H, L)
     attn_for_context = alignments
-    if dropout:
+    if alignments_keep_mask is not None and alignments_keep_prob < 1.0:
         attn_for_context = torch.where(
             alignments_keep_mask, alignments / alignments_keep_prob,
             torch.zeros((), dtype=alignments.dtype))
@@ -248,8 +277,6 @@ def attend(p: Params, cfg: AttentionConfig, query: torch.Tensor,
         attn_for_context.to(memory.values.dtype)[:, :, None, :],
         memory.values)
     context = context.reshape(context.shape[0], -1)
-    if cfg.context_layer:
-        context = dense_apply(p["a_layer"], context, dtype=dtype)
     # the DROPPED maps are returned, as the reference records them
     return context.float(), attn_for_context
 
@@ -266,17 +293,28 @@ def attend_grouped(p: Params, cfg: AttentionConfig, query: torch.Tensor,
     Returns:
       (context (B, K, context_size) f32, alignments (B, K, H, L)).
     """
-    b, k, _ = query.shape
     proj_q = dense_apply(p["query_layer"], query, dtype=dtype)
-    if _kernel_domain(p, cfg, memory, proj_q):
+    if not _kernel_domain(p, cfg, memory, proj_q):
+        context, alignments = _attend_grouped_ops(p, cfg, memory, proj_q)
+    elif memory.keys.is_cuda:
         context, alignments = grouped_add_ln_attention(
             proj_q, memory.keys, memory.key_mean, memory.key_m2, p["v"],
             p["ln"]["scale"], p["ln"]["bias"], p["softmax_temperature"],
             num_heads=cfg.num_heads)
-        if cfg.context_layer:
-            context = dense_apply(p["a_layer"], context, dtype=dtype)
-        return context, alignments
+    else:
+        context, alignments = _as_kernel(_attend_grouped_ops, p, cfg, memory,
+                                         proj_q)
+    if cfg.context_layer:
+        context = dense_apply(p["a_layer"], context, dtype=dtype)
+    return context, alignments
 
+
+def _attend_grouped_ops(p: Params, cfg: AttentionConfig,
+                        memory: AttentionMemory, proj_q: torch.Tensor,
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """attend_grouped's torch ops from the projected queries -> (context
+    (B, K, U) f32 before the context layer, alignments (B, K, H, L))."""
+    b, k, _ = proj_q.shape
     proj_q = proj_q.to(memory.keys.dtype)
     keys = memory.keys[:, None]  # (B, 1, L, U)
     if cfg.alignment == "add_LN" and memory.key_mean is not None:
@@ -302,6 +340,4 @@ def attend_grouped(p: Params, cfg: AttentionConfig, query: torch.Tensor,
     context = matmul_f32(alignments.to(memory.values.dtype).transpose(1, 2),
                          memory.values)
     context = context.transpose(1, 2).reshape(b, k, -1)
-    if cfg.context_layer:
-        context = dense_apply(p["a_layer"], context, dtype=dtype)
     return context.float(), alignments

@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import roofline
 from . import _cuda
 
 LN_EPS = 1e-12
@@ -71,7 +72,20 @@ def fused_add_ln_attention(
     temperature: torch.Tensor,  # () f32
     *, num_heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (context (R, U) f32, alignments (R, H, L) f32)."""
+    """-> (context (R, U) f32, alignments (R, H, L) f32).
+
+    Under ``roofline.count_costs`` the call counts as
+    ``roofline.add_ln_attention_cost``, whichever device computes it."""
+    args = (query, keys, v, ln_scale, ln_bias, temperature)
+    if roofline.ACTIVE is not None:
+        return roofline.ACTIVE.kernel(
+            roofline.add_ln_attention_cost(query, keys, num_heads),
+            _fused_add_ln_attention, *args, num_heads=num_heads)
+    return _fused_add_ln_attention(*args, num_heads=num_heads)
+
+
+def _fused_add_ln_attention(query, keys, v, ln_scale, ln_bias, temperature,
+                            *, num_heads):
     if keys.device.type == "cpu":
         return fused_add_ln_attention_plain(
             query, keys, v, ln_scale, ln_bias, temperature,

@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import roofline
 from . import _cuda
 
 LN_EPS = 1e-12
@@ -81,7 +82,20 @@ def grouped_add_ln_attention(
     temperature: torch.Tensor,  # () f32
     *, num_heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (context (B, K, U) f32, alignments (B, K, H, L) f32)."""
+    """-> (context (B, K, U) f32, alignments (B, K, H, L) f32).
+
+    Under ``roofline.count_costs`` the call counts as
+    ``roofline.add_ln_attention_cost``, whichever device computes it."""
+    args = (query, keys, key_mean, key_m2, v, ln_scale, ln_bias, temperature)
+    if roofline.ACTIVE is not None:
+        return roofline.ACTIVE.kernel(
+            roofline.add_ln_attention_cost(query, keys, num_heads),
+            _grouped_add_ln_attention, *args, num_heads=num_heads)
+    return _grouped_add_ln_attention(*args, num_heads=num_heads)
+
+
+def _grouped_add_ln_attention(query, keys, key_mean, key_m2, v, ln_scale,
+                              ln_bias, temperature, *, num_heads):
     if keys.device.type == "cpu":
         return grouped_add_ln_attention_plain(
             query, keys, key_mean, key_m2, v, ln_scale, ln_bias, temperature,

@@ -36,6 +36,7 @@ from ..models.captioner import (
 from ..models.layers import count_params
 from ..params import jax_shape
 from ..tokenization import Vocabulary, build_char_vocab
+from ..utils.profiling import StepTracer
 from ..utils.summaries import SummaryWriter
 from . import checkpoints as ckpt
 from .optimizer import (Optimizer, masked_l2_loss, path_string,
@@ -189,10 +190,6 @@ def train_fn(config: Config, *, max_steps_override: Optional[int] = None,
     comic_tpu writes them: config.pkl (+ txt), model_size.txt,
     events.jsonl, model-*/model_compact-* checkpoints.
     """
-    if config.get("profile_dir"):
-        raise NotImplementedError(
-            "profile_dir (the step tracer) is not yet ported to "
-            "comic_tpu_torch.")
     device = resolve_device(device)
     vocab = _resolve_vocab(config)
     spec = build_model_spec(config, vocab)
@@ -256,6 +253,7 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
 
     writer = SummaryWriter(config.log_path)
     saver = ckpt.make_saver(config.get("checkpoint_backend", "msgpack"))
+    tracer = StepTracer(config.get("profile_dir"), device=device)
     log_every = max(steps_per_epoch // max(config.num_logs_per_epoch, 1), 1)
     save_every = (steps_per_epoch if steps_per_epoch <= 5000
                   else steps_per_epoch // 2)
@@ -289,6 +287,7 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
                       f"ppl {np.exp(m['log_ppl']):.2f}  "
                       f"{m['examples_per_sec']:.1f} ex/s")
                 t_last, n_since = time.time(), 0
+            tracer.step(step)
             if (step // save_every) != (prev_step // save_every) \
                     or step == max_step:
                 saver.save(config.log_path, step, state.params,
@@ -299,8 +298,11 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
                 writer.scalars(step, {"eval_perplexity": eval_ppl})
                 print(f"step {step}: eval perplexity {eval_ppl:.3f}")
     finally:
-        saver.close()
-        writer.close()
+        try:
+            tracer.close()
+        finally:
+            saver.close()
+            writer.close()
     return {k: float(v) for k, v in metrics.items()}
 
 

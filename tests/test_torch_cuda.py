@@ -520,3 +520,85 @@ def test_zoo_encoder_on_card_matches_cpu(card, cnn_name):
     for got, want in zip(out["cuda"], out["cpu"]):
         assert torch.isfinite(got).all()
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+COST_FIELDS = ("matmul_flops", "conv_flops", "vpu_elems", "bytes_lower",
+               "bytes_upper", "by_primitive")
+
+
+def _cost_fields(cost):
+    return {f: getattr(cost, f) for f in COST_FIELDS}
+
+
+@pytest.mark.parametrize("grouped", [True, False])
+def test_kernel_call_counts_equal_cpu(card, grouped):
+    """One K1 / K2 call counted on the card (the kernel launches, no
+    dispatch mode sees it) equals the same call counted on the CPU (the
+    plain version runs), field by field."""
+    from comic_tpu_torch.utils.roofline import count_costs
+
+    query, keys, mean, m2, vecs = _inputs(
+        card, 25, 3 if grouped else None, 196, 512, torch.bfloat16)
+    if grouped:
+        fn, args = k1.grouped_add_ln_attention, (query, keys, mean, m2,
+                                                 *vecs)
+    else:
+        fn, args = k2.fused_add_ln_attention, (query, keys, *vecs)
+    before = fn.launches
+    on_card = count_costs(fn, *args, num_heads=8)
+    assert fn.launches == before + 1
+    on_cpu = count_costs(fn, *[t.cpu() for t in args], num_heads=8)
+    assert _cost_fields(on_card) == _cost_fields(on_cpu)
+    assert on_card.matmul_flops > 0
+
+
+@pytest.mark.parametrize("beam", [3, 1])
+def test_tiny_serve_count_on_card_equals_cpu(card, beam):
+    """The tiny flagship's serve (fixed 6 steps, uint8 images in) counted on
+    the card, where K1 or K2 takes every step, equals its count on the
+    CPU, field by field."""
+    from comic_tpu_torch.entry import flagship
+    from comic_tpu_torch.inference import make_serve_fn
+    from comic_tpu_torch.models.captioner import init_params
+    from comic_tpu_torch.utils.roofline import count_costs
+
+    config, spec = flagship(tiny=True)
+    config.update(infer_beam_size=beam, infer_early_exit=False)
+    params = init_params(spec, torch.Generator().manual_seed(0),
+                         device="cpu")
+    images = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1)
+                           ).numpy()
+    kernel = (k1.grouped_add_ln_attention if beam > 1
+              else k2.fused_add_ln_attention)
+    costs = {}
+    for dev in (card, torch.device("cpu")):
+        serve = make_serve_fn(spec, config, 6, collect_alignments=False,
+                              device=dev)
+        before = kernel.launches
+        costs[dev.type] = count_costs(serve, tree_to(params, dev), images)
+        launched = kernel.launches - before
+        assert launched == (6 if dev.type == "cuda" else 0)
+    assert _cost_fields(costs["cuda"]) == _cost_fields(costs["cpu"])
+    assert costs["cuda"].by_primitive[kernel.__name__] > 0
+
+
+def test_step_tracer_on_card_records_cuda_kernels(card, tmp_path):
+    import glob
+    import json
+
+    from comic_tpu_torch.utils.profiling import StepTracer
+
+    tracer = StepTracer(str(tmp_path), start=1, count=2)  # the card
+    a = torch.randn(256, 256, device=card)
+    for i in range(5):
+        a = torch.tanh(a @ a)
+        tracer.step(i)
+    tracer.close()
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("ProfilerStep#")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(steps) == 2 and kernels

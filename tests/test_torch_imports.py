@@ -177,3 +177,44 @@ def test_chip_smoke_fails_without_card_or_repo(no_card, tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+# the profiling slice's modules: the step tracer, the cost model, entry()
+PROFILING_MODULES = ("comic_tpu_torch.utils.profiling",
+                     "comic_tpu_torch.utils.roofline",
+                     "comic_tpu_torch.entry")
+
+_PROFILING = r"""
+import sys
+sys.modules.update(dict.fromkeys(%r))
+import pkgutil, comic_tpu_torch
+names = {m.name for m in pkgutil.walk_packages(comic_tpu_torch.__path__,
+                                               "comic_tpu_torch.")}
+missing = set(%r) - names
+assert not missing, missing
+from comic_tpu_torch.data.captions import coco_image_id
+from comic_tpu_torch.entry import entry
+from comic_tpu_torch.utils.profiling import StepTracer
+from comic_tpu_torch.utils.roofline import count_costs, utilization_fields
+tracer = StepTracer(None)
+tracer.step(0)
+tracer.close()
+fn, args = entry("cpu", tiny=True)
+cost = count_costs(fn, *args)
+assert cost.conv_flops > 0 and cost.matmul_flops > 0
+assert utilization_fields(cost, 1.0)["gflops"] > 0
+print(coco_image_id("COCO_val2014_000000000007.jpg"))
+"""
+
+
+def test_profiling_modules_run_without_jax():
+    """The new modules, with JAX, comic_tpu and the optional libraries
+    made unimportable: imported, and each driven once on the CPU."""
+    blocked = ["jax", "jaxlib", "flax", "optax", "comic_tpu",
+               *OPTIONAL_LIBRARIES]
+    out = subprocess.run(
+        [sys.executable, "-c", _PROFILING % (blocked, PROFILING_MODULES)],
+        cwd=ROOT, env=_clean_env(), capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "7"

@@ -426,6 +426,12 @@ def test_steps_per_call_runs_single_steps(drivers):
         k2 = f.read()
     with open(os.path.join(tdir, "model_compact-4.msgpack"), "rb") as f:
         assert f.read() == k2
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        txe.train_fn(Config(**dict(kw, profile_dir=str(root / "p"))),
-                     device="cpu")
+    # profile_dir is taken (the step tracer): its window, the loop's calls
+    # [10, 13), lies past these 2 calls, so no trace and the same weights
+    kw.update(log_path=str(root / "port_k2_traced"),
+              profile_dir=str(root / "p"))
+    txe.train_fn(Config(**kw), max_steps_override=4, device="cpu")
+    assert not os.path.exists(str(root / "p"))
+    with open(os.path.join(kw["log_path"], "model_compact-4.msgpack"),
+              "rb") as f:
+        assert f.read() == k2
