@@ -55,7 +55,24 @@ Phases (any failure raises and exits non-zero):
      dropout and augment off, on the card and on the CPU from the same
      parameters and images: greedy and all-beam ids and the rewards
      exactly equal, the loss and updated parameters within TOL_TRAIN;
- 14. eval-sweep: the infer CLI (comic_tpu_torch.cli.infer.main) over an
+ 14. dp-agree, dp-train, dp-scst: this script with --dp-job in a process of
+     its own, which joins a world-1 NCCL job from COMIC_COORDINATOR (a
+     free port of localhost), COMIC_NUM_PROCESSES=1, COMIC_PROCESS_ID=0
+     (one card: NCCL refuses two ranks on it): train-agree's float32 step
+     plain twice (the card's own repeatability, printed) and then in the
+     job, cuDNN deterministic, equal within TOL_DP with one gradient
+     all-reduce; train-decoder's setup in the job (checked as phase 7,
+     one all-reduce a step, the same files as train-decoder's directory:
+     one writer); DP_SCST_STEPS steps of train-scst's setup (K1 and K2 in
+     every rollout, none in a train step, one all-reduce a step);
+ 15. dp-serve: serve-beam3's batches through a serve fn whose mesh is
+     make_mesh_for_batch over every visible card: captions equal to
+     serve-beam3's JSON, ids to the unsplit serve's; K1 must launch;
+ 16. dryrun: comic_tpu_torch.entry.dryrun_multichip over every visible
+     card (an n-process NCCL job's XE and SCST steps, then the split
+     serve; the tiny model, so its launches stay out of the kernels'
+     main-path counts and are reported apart as dryrun_launches);
+ 17. eval-sweep: the infer CLI (comic_tpu_torch.cli.infer.main) over an
      experiment directory (config.pkl at COMIC-256 defaults, bf16; the
      smoke weights' and the decoder stage's compact checkpoints) on
      in-memory images with a COCO annotations JSON of 5 random references
@@ -67,10 +84,10 @@ Phases (any failure raises and exits non-zero):
      be finite, the peak device memory stay flat from the first checkpoint
      to the last, and the scores-only call repeat the first call's scores;
      decode and scoring seconds printed per checkpoint;
- 15. eval-agree: sweep_checkpoints over one checkpoint at batch 2, beam 3,
+ 18. eval-agree: sweep_checkpoints over one checkpoint at batch 2, beam 3,
      float32, TF32 off, 4 images, on the card and on the CPU: the caption
      JSON and metric_scores.txt byte-identical;
- 16. overfit-gate: tests/test_overfit_gate.py at COMIC-256 width (bf16):
+ 19. overfit-gate: tests/test_overfit_gate.py at COMIC-256 width (bf16):
      the port's synthetic fixture (10 solid-colour images, the test split
      mirroring train) in memory; the decoder stage restored in mode 'cnn'
      from the smoke weights' CNN written under slim names and converted by
@@ -80,7 +97,7 @@ Phases (any failure raises and exits non-zero):
      |reward| < 5 and CIDEr > 4. K1 launches in the sweeps and the SCST
      rollouts, K2 in the eval passes and the greedy baselines, neither in
      a train step;
- 17. zoo-serve: every encoder comic_tpu registers (20 --cnn_name values)
+ 20. zoo-serve: every encoder comic_tpu registers (20 --cnn_name values)
      at 224 in bf16 with COMIC-256's decoder: seeded port weights with BN
      statistics perturbed, a compact checkpoint, and 2 batches of 25
      seeded images through run_inference at beam 3; K1 must launch once
@@ -89,10 +106,10 @@ Phases (any failure raises and exits non-zero):
      ms, captions/s, launches and peak memory. resnet_v1_50 and
      inception_v3 (one of each preprocessing kind) also serve a batch
      greedy, with K2 on every step;
- 18. zoo-agree: one encoder of each module, float32 with TF32 off, batch
+ 21. zoo-agree: one encoder of each module, float32 with TF32 off, batch
      2, beam 3, card vs the port's CPU path: the attention memory within
      TOL_ZOO of its scale and the top-beam ids equal;
- 19. zoo-train: 10 steps of the training CLI's cnn_finetune stage with
+ 22. zoo-train: 10 steps of the training CLI's cnn_finetune stage with
      resnet_v1_50 at batch 32 (the VGG train augmentation on the card and
      the backward of slim's fixed-pad strided convs): finite losses, the
      checkpoints, 0 kernel launches in every train step, K2 in the eval
@@ -738,12 +755,14 @@ def train_phase(stage, steps, ckpt_path, kernels, cnn_name="inception_v1",
     of 2 x 61 rows at the end. K1 and K2 must launch 0 times in the train
     steps; K2 must launch in the eval pass. A ``tag`` names the run (its
     experiment too); ``extra_argv`` adds flags to its command line. ->
-    (eval launches per kernel, summary)"""
+    (eval launches per kernel, summary; the summary counts the gradient
+    all-reduces of the run, which a torch.distributed job makes)"""
     import numpy as np
     import torch
 
     from comic_tpu_torch.cli.train import stage_config
     from comic_tpu_torch.data.pipeline import TrainPipeline
+    from comic_tpu_torch.parallel.mesh import all_reduce_grads
     from comic_tpu_torch.tokenization import Vocabulary
 
     stage_fn, config = stage_config(
@@ -765,10 +784,12 @@ def train_phase(stage, steps, ckpt_path, kernels, cnn_name="inception_v1",
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    reduces = all_reduce_grads.calls
     t0 = time.perf_counter()
     stage_fn(config, max_steps_override=steps, train_pipe=train_pipe,
              eval_pipe=eval_pipe)
     wall = time.perf_counter() - t0
+    reduces = all_reduce_grads.calls - reduces
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     total = [k.launches for k in kernels]
     eval_launches = [sum(p[i] for p in eval_pipe.passes)
@@ -813,7 +834,8 @@ def train_phase(stage, steps, ckpt_path, kernels, cnn_name="inception_v1",
           f"{dict(zip(names, train_launches))}, in the eval pass "
           f"{dict(zip(names, eval_launches))}")
     summary = {"head": head, "tail": tail, "losses": losses,
-               "log_path": config.log_path, "step_ms": med}
+               "log_path": config.log_path, "step_ms": med,
+               "all_reduces": reduces}
     if tag == "train-decoder":  # the program the cost model counts
         summary["train_step"] = stage_train_step(config, vocab, train_pipe)
     profile_train_step(config, vocab, train_pipe, tag)
@@ -2181,6 +2203,297 @@ def zoo_train_phase(state, kernels):
                                    kernels, ZOO_TRAIN_NET)
     return eval_launches
 
+# data parallelism: the smoke's job is one process on one card (NCCL
+# refuses two ranks on one GPU), joined from COMIC_COORDINATOR as a user's
+# W-card job is; dp-scst's steps; dp-agree's bound on the job step against
+# the plain step (float32, TF32 off: one code path, a loss share of
+# exactly 1 and an all-reduce over one rank, so the job leaves the step
+# as it was)
+DP_SCST_STEPS, TOL_DP = 10, 1e-6
+
+
+def dp_agree(ckpt_path):
+    """Phase dp-agree, in the job's process: one XE step at batch 2, full
+    width, float32 with TF32 off, nothing frozen, dropout and augment off,
+    plain twice (how far the card repeats its own step), then after
+    joining the world-1 NCCL job from the environment, from the same
+    parameters, with cuDNN held to its deterministic algorithms (its
+    default convolution backward sums in another order from call to
+    call, 1e-7 of a leaf). -> the numbers to report"""
+    import torch
+    import torch.distributed as dist
+
+    from comic_tpu_torch.data.pipeline import pad_rows
+    from comic_tpu_torch.models.captioner import build_model_spec, init_params
+    from comic_tpu_torch.parallel import mesh as pm
+    from comic_tpu_torch.parallel.distributed import \
+        maybe_initialize_distributed
+    from comic_tpu_torch.tokenization import Vocabulary, encode_caption_tokens
+    from comic_tpu_torch.training.checkpoints import load_compact
+    from comic_tpu_torch.training.optimizer import (Optimizer, set_trainable,
+                                                    tree_items)
+    from comic_tpu_torch.training.xe import TrainState, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    config = smoke_config(1, 2, "float32")
+    config.update(dropout_rnn_in=0.0, dropout_rnn_out=0.0, attn_keep_prob=1.0,
+                  cnn_input_augment=False, freeze_scopes="")
+    vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+    spec = build_model_spec(config, vocab)
+    images = image_batches(1, 2)[0][0]
+    caps = pad_rows([encode_caption_tokens(t, "radix", vocab, 256)
+                     for _, t in caption_records("agree", 2, 0)], 42)
+    out = {}
+    for tag in ("plain", "plain-again", "job"):
+        if tag == "job":
+            if not maybe_initialize_distributed():
+                raise AssertionError("dp-agree: COMIC_COORDINATOR is not set")
+        params = load_compact(ckpt_path, init_params(spec, device="cuda"))
+        opt = Optimizer(params, lambda n: 1e-3, freeze_scopes="")
+        set_trainable(params, opt.mask)
+        step = make_train_step(spec, config, (224, 224), device="cuda")
+        calls = pm.all_reduce_grads.calls
+        _, metrics = step(TrainState(params, opt, 0), images, caps)
+        out[tag] = (metrics["total_loss"].item(),
+                    {p: v.detach().cpu() for p, v in tree_items(params)},
+                    pm.all_reduce_grads.calls - calls)
+    # TF32 stays off, as in the smoke's own process after agree-f32, so
+    # that dp-train runs train-decoder's arithmetic
+    torch.backends.cudnn.deterministic = deterministic
+    worst, worst_leaf = worst_leaf_difference(out["job"][1], out["plain"][1])
+    repeat, _ = worst_leaf_difference(out["plain-again"][1], out["plain"][1])
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "loss_plain": out["plain"][0], "loss_job": out["job"][0],
+            "loss_rel": abs(out["job"][0] - out["plain"][0])
+            / abs(out["plain"][0]), "worst": worst, "worst_leaf": worst_leaf,
+            "plain_repeat": repeat,
+            "plain_repeat_loss_equal": out["plain-again"][0]
+            == out["plain"][0], "all_reduces": out["job"][2]}
+
+
+def dp_scst(kernels):
+    """Phase dp-scst, in the job's process: DP_SCST_STEPS steps of the
+    training CLI's scst stage (batch 10, beam 7, bf16) through its stage
+    chain (which joins the job) from the cnn_finetune stage's directory,
+    into a directory of its own, on in-memory batches, with the IDF cache
+    train-scst wrote. -> the numbers to report"""
+    import numpy as np
+
+    from comic_tpu_torch.cli.train import stage_config
+    from comic_tpu_torch.data.pipeline import ScstPipeline
+    from comic_tpu_torch.parallel import mesh as pm
+    from comic_tpu_torch.tokenization import Vocabulary
+
+    # the SCST stage reads the cnn_finetune stage's directory under its log
+    # root: the smoke's own, linked into a root of the job's
+    root = os.path.join(OUT, "dp")
+    os.makedirs(root, exist_ok=True)
+    train_root = os.path.join(OUT, "train")
+    for name in os.listdir(train_root):
+        if name.endswith("_smoke_cnnFT_run_01"):
+            os.symlink(os.path.join(train_root, name),
+                       os.path.join(root, name))
+    stage_fn, config = stage_config([
+        "--train_mode", "scst", "--name", "smoke", "--log_root", root,
+        "--dataset_dir", os.path.join(train_root, "data")])
+    vocab_cfg = smoke_config(1, B, "bfloat16")
+    config.update(wtoi=vocab_cfg.wtoi, itow=vocab_cfg.itow,
+                  vocab_size=len(vocab_cfg.itow))
+    vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+    records = scst_records(SCST_B * (DP_SCST_STEPS + 1))
+    pipe = ScstPipeline(config, vocab, records=records, loader=MemoryImages())
+    for k in kernels:
+        k.launches = 0
+    calls = pm.all_reduce_grads.calls
+    with ScstProbe(kernels) as probe:
+        stage_fn(config, max_steps_override=DP_SCST_STEPS, pipe=pipe)
+    pipe.close()
+    losses = [m["total_loss"] for m in probe.metrics]
+    step_ms = [(b - a) * 1e3 for a, b in zip(probe.ends[2:], probe.ends[3:])]
+    return {"rollouts": probe.rollouts, "steps": probe.steps,
+            "losses": losses, "finite": bool(np.isfinite(losses).all()),
+            "launches": [k.launches for k in kernels],
+            "all_reduces": pm.all_reduce_grads.calls - calls,
+            "step_ms": statistics.median(step_ms),
+            "log_path": config.log_path}
+
+
+def dp_job(ckpt_path, out_json):
+    """The data-parallel phases' process (``chip_smoke.py --dp-job``):
+    launched by dp_phases with COMIC_COORDINATOR, COMIC_NUM_PROCESSES=1 and
+    COMIC_PROCESS_ID=0, it runs dp-agree (which joins the job), dp-train
+    and dp-scst, and writes their numbers to ``out_json``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from comic_tpu_torch.ops import fused_attention as k2
+    from comic_tpu_torch.ops import grouped_attention as k1
+
+    kernels = [k1.grouped_add_ln_attention, k2.fused_add_ln_attention]
+    result = {"agree": dp_agree(ckpt_path)}
+    eval_launches, train = train_phase("decoder", DECODER_STEPS, ckpt_path,
+                                       kernels, tag="dp-train")
+    result["train"] = {"eval_launches": eval_launches,
+                       "all_reduces": train["all_reduces"],
+                       "head": train["head"], "tail": train["tail"],
+                       "step_ms": train["step_ms"],
+                       "log_path": train["log_path"],
+                       "backend": dist.get_backend()}
+    result["scst"] = dp_scst(kernels)
+    dist.destroy_process_group()
+    with open(out_json, "w") as f:
+        json.dump(result, f)
+
+
+def dp_phases(kernels, decoder):
+    """Phases dp-agree, dp-train, dp-scst: this script with --dp-job in a
+    process of its own, which joins a world-1 NCCL job from
+    COMIC_COORDINATOR (a free port of localhost), COMIC_NUM_PROCESSES=1
+    and COMIC_PROCESS_ID=0. dp-agree within TOL_DP with one gradient
+    all-reduce; dp-train (train-decoder's setup: COMIC-256, bf16, batch
+    32, DECODER_STEPS steps from the smoke weights) checked as
+    train-decoder is, its loss falling as much, one all-reduce a step, and
+    its directory the one set of files train-decoder's is; dp-scst with K1
+    and K2 in every rollout, none in a train step, one all-reduce a step.
+    ``decoder``: train-decoder's summary. -> launches per kernel"""
+    import numpy as np
+
+    from comic_tpu_torch.entry import free_port
+
+    out_json = os.path.join(OUT, "dp_job.json")
+    env = dict(os.environ, COMIC_COORDINATOR=f"127.0.0.1:{free_port()}",
+               COMIC_NUM_PROCESSES="1", COMIC_PROCESS_ID="0")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--dp-job",
+                    decoder["ckpt_path"], out_json], env=env, check=True,
+                   timeout=900)
+    wall = time.perf_counter() - t0
+    with open(out_json) as f:
+        res = json.load(f)
+    agree, train, scst = res["agree"], res["train"], res["scst"]
+    print(f"dp-agree (world-{agree['world']} {agree['backend']} job vs the "
+          f"plain step, float32, TF32 off, cuDNN deterministic, batch 2, "
+          f"nothing frozen): loss "
+          f"{agree['loss_job']:.7f} vs {agree['loss_plain']:.7f}, relative "
+          f"difference {agree['loss_rel']:.2e}; largest relative difference "
+          f"of the updated parameters {agree['worst']:.2e} at "
+          f"{agree['worst_leaf']} (tol {TOL_DP:.0e}); the plain step "
+          f"repeated: largest relative difference {agree['plain_repeat']:.2e}"
+          f", loss equal {agree['plain_repeat_loss_equal']}; "
+          f"all_reduce_grads calls {agree['all_reduces']}")
+    if not (agree["backend"] == "nccl" and agree["world"] == 1
+            and agree["all_reduces"] == 1 and agree["loss_rel"] <= TOL_DP
+            and agree["worst"] <= TOL_DP):
+        raise AssertionError("dp-agree: the job's step disagrees with the "
+                             "plain step")
+
+    # the files of the job's run against train-decoder's, the config
+    # records (timestamped) and TensorBoard files (named by host and time,
+    # where TensorBoard is installed) counted
+    files = {}
+    stamped = ("config___", "events.out.tfevents")
+    for tag, log in (("train-decoder", decoder["log_path"]),
+                     ("dp-train", train["log_path"])):
+        names = sorted(os.listdir(log))
+        with open(os.path.join(log, "model_size.txt"), "rb") as f:
+            files[tag] = ([n for n in names if not n.startswith(stamped)],
+                          [sum(n.startswith(p) for n in names)
+                           for p in stamped], f.read())
+    print(f"dp-train (world-1 {train['backend']} job): steady steps "
+          f"{train['step_ms']:.2f} ms median against train-decoder's "
+          f"{decoder['step_ms']:.2f} ms; XE log-ppl first 3 steps "
+          f"{train['head']:.4f}, last 3 {train['tail']:.4f}; all_reduce_grads "
+          f"calls {train['all_reduces']}; log directory {files['dp-train'][0]}"
+          f" + config records and TensorBoard files {files['dp-train'][1]}")
+    if not (train["backend"] == "nccl" and train["tail"] < train["head"]
+            - LOSS_DROP and train["all_reduces"] == DECODER_STEPS
+            and files["dp-train"] == files["train-decoder"]
+            and files["dp-train"][1][0] == 1
+            and files["dp-train"][1][1] <= 1):
+        raise AssertionError(f"dp-train: {train}, files {files}")
+
+    names = [k.__name__ for k in kernels]
+    per_rollout = {n: sorted({r[i] for r in scst["rollouts"]})
+                   for i, n in enumerate(names)}
+    print(f"dp-scst (world-1 nccl job): {len(scst['steps'])} steps of "
+          f"{SCST_B} images x beam {SCST_K}, steady steps "
+          f"{scst['step_ms']:.2f} ms median; total loss first "
+          f"{scst['losses'][0]:.6f}, last {scst['losses'][-1]:.6f}; launches "
+          f"per rollout {per_rollout}, in the train steps "
+          f"{sum(map(sum, scst['steps']))}; all_reduce_grads calls "
+          f"{scst['all_reduces']}; the job's phases took {wall:.1f} s in "
+          "their process, its start included")
+    if not (len(scst["rollouts"]) == DP_SCST_STEPS and scst["finite"]
+            and all(all(n > 0 for n in r) for r in scst["rollouts"])
+            and not any(map(any, scst["steps"]))
+            and scst["all_reduces"] == DP_SCST_STEPS):
+        raise AssertionError(f"dp-scst: {scst}")
+    return [e + s for e, s in zip(train["eval_launches"], scst["launches"])]
+
+
+def dp_serve_phase(kernels, ckpt_path, batches):
+    """Phase dp-serve: serve-beam3's batches through a serve fn whose mesh
+    is make_mesh_for_batch over every visible card: its captions must equal
+    serve-beam3's caption JSON, and its ids those of the same serve without
+    a mesh. -> K1's launches in the mesh serve"""
+    import torch
+
+    from comic_tpu_torch.inference import infer_dir_name, make_serve_fn
+    from comic_tpu_torch.models.captioner import (build_model_spec,
+                                                  init_params,
+                                                  max_decode_steps)
+    from comic_tpu_torch.parallel.mesh import make_mesh_for_batch
+    from comic_tpu_torch.tokenization import Vocabulary, ids_to_captions
+    from comic_tpu_torch.training.checkpoints import load_compact
+
+    config = smoke_config(3, B, "bfloat16")
+    vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+    spec = build_model_spec(config, vocab)
+    params = load_compact(ckpt_path, init_params(spec, device="cuda"))
+    steps = max_decode_steps(config, vocab)
+    mesh = make_mesh_for_batch(B)
+    serve = make_serve_fn(spec, config, steps, collect_alignments=False,
+                          mesh=mesh)
+    plain = make_serve_fn(spec, config, steps, collect_alignments=False)
+    before = kernels[0].launches
+    split = [serve(params, images)[0].cpu() for images, _ in batches]
+    launches = kernels[0].launches - before
+    whole = [plain(params, images)[0].cpu() for images, _ in batches]
+    with open(os.path.join(config.log_path, infer_dir_name(config),
+                           "captions___model_compact-1.json")) as f:
+        served = [c["caption"] for c in json.load(f)]
+    caps = [c for ids in split for c in ids_to_captions(
+        ids.numpy(), "radix", vocab, config.radix_base)]
+    same = all(torch.equal(a, b) for a, b in zip(split, whole))
+    print(f"dp-serve: {len(caps)} images in {len(batches)} batches of {B} "
+          f"split over a mesh of {mesh.size} card(s) "
+          f"({[str(d) for d in mesh.devices]}): ids equal to the unsplit "
+          f"serve: {same}; captions equal to serve-beam3's JSON: "
+          f"{caps == served}; K1 launches {launches}")
+    if not (same and caps == served and launches > 0):
+        raise AssertionError("dp-serve: the mesh serve differs")
+    return launches
+
+
+def dryrun_phase(kernels):
+    """Phase dryrun: comic_tpu_torch.entry.dryrun_multichip over every
+    visible card (an n-process NCCL job: XE step, K=2 call, SCST rollout
+    and step; then serving split over the n cards in this process). ->
+    the kernels' launches in this process"""
+    import torch
+
+    from comic_tpu_torch.entry import dryrun_multichip
+
+    before = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    dryrun_multichip(torch.cuda.device_count(), timeout=600)
+    print(f"dryrun: dryrun_multichip({torch.cuda.device_count()}) passed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [k.launches - b for k, b in zip(kernels, before)]
+
 
 def main():
     import torch
@@ -2262,6 +2575,18 @@ def main():
         records[k.__name__]["scst_shape"]["launches"] = scst_launches[i]
     scst_agree_phase(state)
 
+    # data parallelism: a world-1 NCCL job (agreement, the decoder stage,
+    # SCST), serving split over the cards, and the dry run
+    dec["ckpt_path"] = ckpt_path
+    dp = dp_phases(kernels, dec)
+    dp_serve = dp_serve_phase(kernels, ckpt_path, batches)
+    dry = dryrun_phase(kernels)
+    dp[0] += dp_serve
+    for i, k in enumerate(kernels):
+        records[k.__name__]["launches"] += dp[i]
+        records[k.__name__]["dp_launches"] = dp[i]
+        records[k.__name__]["dryrun_launches"] = dry[i]
+
     # checkpoint evaluation through the infer CLI: the smoke weights and
     # the decoder stage's
     sweep = eval_sweep_phase(kernels, [ckpt_path, os.path.join(
@@ -2306,4 +2631,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-job"]:
+        dp_job(*sys.argv[2:])
+    else:
+        main()

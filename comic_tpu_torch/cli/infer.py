@@ -17,9 +17,10 @@ from __future__ import annotations
 import argparse
 from typing import Tuple
 
-from . import refuse_distributed_launch
+from .. import DeviceLike
 from ..configuration import Config, load_config
 from ..inference import sweep_checkpoints
+from ..parallel.distributed import maybe_initialize_distributed
 
 
 def create_parser() -> argparse.ArgumentParser:
@@ -69,12 +70,15 @@ def create_parser() -> argparse.ArgumentParser:
     return p
 
 
-def infer_config(argv=None) -> Tuple[argparse.Namespace, Config]:
+def infer_config(argv=None, device: DeviceLike = None
+                 ) -> Tuple[argparse.Namespace, Config]:
     """The parsed command line -> (args, the Config the sweep runs with):
     the experiment's saved record with the flags applied; the COCO server
     split forces the eval batch of 61 (reference manager:64-80)."""
     args = create_parser().parse_args(argv)
-    refuse_distributed_launch()
+    # joins the job under COMIC_COORDINATOR, as comic_tpu does; the sweep
+    # then refuses a multi-process job before touching anything
+    maybe_initialize_distributed(device=device)
     config = load_config(args.infer_checkpoints_dir)
     config.update(
         log_path=args.infer_checkpoints_dir,
@@ -94,16 +98,18 @@ def infer_config(argv=None) -> Tuple[argparse.Namespace, Config]:
     return args, config
 
 
-def main(argv=None):
-    """Sweep the experiment's checkpoints on the card and print one
-    ``name: k=v`` line of scores per checkpoint."""
-    args, config = infer_config(argv)
+def main(argv=None, device: DeviceLike = None):
+    """Sweep the experiment's checkpoints on ``device`` (None: the card; a
+    caller may ask for the CPU) and print one ``name: k=v`` line of scores
+    per checkpoint."""
+    args, config = infer_config(argv, device)
     results = sweep_checkpoints(config, args.annotations_file, args.jar_dir,
                                 checkpoints=args.infer_checkpoints,
                                 run_infer=bool(args.run_inference),
                                 get_metric_score=bool(args.get_metric_score),
                                 save_attention=bool(args.save_attention_maps),
-                                require_ptb_jar=bool(args.require_ptb_jar))
+                                require_ptb_jar=bool(args.require_ptb_jar),
+                                device=device)
     for name, scores in results.items():
         line = "  ".join(f"{k}={v:.4f}" for k, v in sorted(scores.items()))
         print(f"{name}: {line}")

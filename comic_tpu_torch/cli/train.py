@@ -22,12 +22,15 @@ is refused.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import traceback
 from typing import Callable, Tuple
 
-from . import refuse_distributed_launch
+from .. import DeviceLike
 from ..configuration import RUN_SEEDS, Config, load_config
+from ..parallel.distributed import maybe_initialize_distributed
+from ..parallel.mesh import barrier
 from ..training.scst import train_fn_scst
 from ..training.xe import train_fn
 
@@ -223,12 +226,17 @@ def try_to_train(stage_fn, config: Config, try_block: bool = True):
         raise
 
 
-def stage_config(argv=None) -> Tuple[Callable, Config]:
+def stage_config(argv=None, device: DeviceLike = None
+                 ) -> Tuple[Callable, Config]:
     """The parsed command line -> (stage function, Config) as ``main``
     trains them: legacy overrides, the run's seed, the stage chain, and
-    the saved experiment record when the stage's directory exists."""
+    the saved experiment record when the stage's directory exists.
+
+    With ``COMIC_COORDINATOR`` set, the process joins the data-parallel
+    job right after parsing (on ``device``, None: the card), and every
+    rank reads the experiment directory before any rank may write it."""
     args = create_parser().parse_args(argv)
-    refuse_distributed_launch()
+    maybe_initialize_distributed(device=device)
     if args.legacy:
         print("LEGACY mode enabled. Some arguments will be overridden.")
         apply_legacy_overrides(args)
@@ -257,12 +265,15 @@ def stage_config(argv=None) -> Tuple[Callable, Config]:
                      lr_end=config.lr_end, checkpoint_path=config.log_path)
         config = saved
     config.overwrite_safety_check(overwrite=config.resume_training)
+    barrier()
     return stage_fn, config
 
 
-def main(argv=None):
-    stage_fn, config = stage_config(argv)
-    return try_to_train(stage_fn, config)
+def main(argv=None, device: DeviceLike = None):
+    """Train the stage the command line names on ``device`` (None: the
+    card; a caller may ask for the CPU)."""
+    stage_fn, config = stage_config(argv, device)
+    return try_to_train(functools.partial(stage_fn, device=device), config)
 
 
 if __name__ == "__main__":

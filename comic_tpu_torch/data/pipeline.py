@@ -21,9 +21,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..configuration import Config
+from ..parallel.mesh import process_count, process_index
 from ..tokenization import (RadixCodec, Vocabulary, build_char_vocab,
                             encode_caption_tokens)
 from . import captions as cap_io
@@ -295,19 +295,6 @@ def _prefetch(gen: Iterator, depth: int,
     return consume()
 
 
-def _refuse_multiprocess() -> None:
-    """The port's pipelines feed one process; refuse inside a
-    multi-process torch.distributed job, whose ranks would each train on
-    the whole batch (data parallelism is not yet ported)."""
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "Training pipelines under a multi-process torch.distributed "
-            "job are not yet ported to comic_tpu_torch — train in one "
-            "process.")
-
-
 class TrainPipeline:
     """Training/eval batches of (images_u8, caption_ids); one instance per
     split. Mutates the config with the derived ``split_sizes`` and (train)
@@ -317,13 +304,21 @@ class TrainPipeline:
     ``records`` overrides the split's caption file; ``loader`` (anything
     with ``load(paths) -> (N, 256, 256, 3) uint8``) overrides the image
     files, e.g. with in-memory images.
+
+    In a torch.distributed job a training split is split by process (as
+    comic_tpu's ``shard_by_process``): the records, the shuffle and the
+    bucket bounds stay global, the same on every rank: each step takes a GLOBAL batch of batch_size * W records,
+    whose padded width comes from the whole global batch, and each rank
+    loads only its contiguous block of it (rank r: rows [r * batch_size,
+    (r + 1) * batch_size)), the layout mesh.global_batch expects.
+    ``max_step`` and ``steps_per_epoch`` count global batches, the same on
+    every rank.
     """
 
     def __init__(self, config: Config, vocab: Vocabulary, split: str,
                  records: Optional[List[Tuple[str, List[str]]]] = None,
                  num_workers: int = 8, seed: Optional[int] = None,
                  loader=None):
-        _refuse_multiprocess()
         self.config = config
         self.split = split
         self.is_training = "train" in split
@@ -344,6 +339,8 @@ class TrainPipeline:
             max_encoded_len=max((len(r) for r in self._encoded), default=0))
         self.batch_size = (config.batch_size_train if self.is_training
                            else config.batch_size_eval)
+        self._n_proc, self._pid = ((process_count(), process_index())
+                                   if self.is_training else (1, 0))
         if loader is None:
             loader = _ImageLoaderPool(
                 num_workers, mode=host_resize_mode(config, self.is_training),
@@ -356,7 +353,7 @@ class TrainPipeline:
             config.split_sizes = {}
         config.split_sizes[split] = len(records)
         if self.is_training:
-            config.max_step = int(len(records) / self.batch_size
+            config.max_step = int(len(records) / self._group
                                   * config.max_epoch)
         elif len(records) % self.batch_size != 0:
             # the eval split must tile exactly (reference manager:123,145)
@@ -365,8 +362,13 @@ class TrainPipeline:
                 f"split size {len(records)}")
 
     @property
+    def _group(self) -> int:
+        """Records a step takes: the global batch."""
+        return self.batch_size * self._n_proc
+
+    @property
     def steps_per_epoch(self) -> int:
-        return len(self.records) // self.batch_size
+        return len(self.records) // self._group
 
     def _epoch_order(self) -> List[int]:
         order = list(range(len(self.records)))
@@ -375,14 +377,15 @@ class TrainPipeline:
         return order
 
     def _batches_of_indices(self) -> Iterator[List[int]]:
-        """Bucket-homogeneous index batches covering one epoch; an eval
-        split then flushes the per-bucket leftovers as mixed batches, so
-        every record is seen (padding is loss-masked)."""
+        """Bucket-homogeneous index batches covering one epoch (global
+        batches of a training split); an eval split then flushes the
+        per-bucket leftovers as mixed batches, so every record is seen
+        (padding is loss-masked)."""
         buckets: List[List[int]] = [[] for _ in self.bounds]
         for idx in self._epoch_order():
             b = pick_bucket(len(self._encoded[idx]), self.bounds)
             buckets[b].append(idx)
-            if len(buckets[b]) == self.batch_size:
+            if len(buckets[b]) == self._group:
                 yield buckets[b]
                 buckets[b] = []
         if not self.is_training:
@@ -392,8 +395,13 @@ class TrainPipeline:
 
     def _make_batch(self, idxs: List[int]) -> Tuple[np.ndarray, np.ndarray]:
         rows = [self._encoded[i] for i in idxs]
+        # the width of the whole global batch, before this rank's block
         width = self.bounds[max(pick_bucket(len(r), self.bounds)
                                 for r in rows)]
+        if self._n_proc > 1:
+            blk = len(idxs) // self._n_proc
+            idxs = idxs[self._pid * blk: (self._pid + 1) * blk]
+            rows = rows[self._pid * blk: (self._pid + 1) * blk]
         paths = [cap_io.pjoin(self.config.dataset_dir, self.records[i][0])
                  for i in idxs]
         return self.loader.load(paths), pad_rows(rows, width)
@@ -423,7 +431,7 @@ class TrainPipeline:
                 for idx in self._epoch_order():
                     b = pick_bucket(len(self._encoded[idx]), self.bounds)
                     buckets[b].append(idx)
-                    if len(buckets[b]) == self.batch_size:
+                    if len(buckets[b]) == self._group:
                         yield self._make_batch(buckets[b])
                         buckets[b] = []
 
@@ -444,14 +452,15 @@ class ScstPipeline:
 
     ``records`` ((path, reference strings) per image) overrides the train
     caption file; ``loader`` overrides the image files, as in
-    TrainPipeline.
+    TrainPipeline. In a torch.distributed job it is not split: every rank
+    loads the same batch (its refs are scored rank by rank,
+    training/scst.host_score_shard).
     """
 
     def __init__(self, config: Config, vocab: Vocabulary,
                  records: Optional[List[Tuple[str, List[str]]]] = None,
                  num_workers: int = 8, seed: Optional[int] = None,
                  loader=None):
-        _refuse_multiprocess()
         self.config = config
         self.vocab = vocab
         if records is None:

@@ -106,23 +106,30 @@ def augment(images: torch.Tensor, out_h: int, out_w: int,
     return images[batch, rows[:, :, None], cols[:, None, :]]
 
 
-def _crop_batch(images_u8, out_h: int, out_w: int, device: torch.device,
-                training: bool, generator: Optional[torch.Generator]
-                ) -> torch.Tensor:
-    """(B, H, W, 3) uint8 -> (B, out_h, out_w, 3) float32 0-255 on
-    ``device``: the train flip and crop drawn from ``generator``, or the
-    eval central crop-or-pad. Raises where the crop is larger than the
+def check_crop(in_h: int, in_w: int, out_h: int, out_w: int) -> None:
+    """Raise where the (out_h, out_w) crop is larger than the (in_h, in_w)
     image: the reference crops, never upsamples."""
-    images = torch.as_tensor(images_u8).to(device, non_blocking=True)
-    in_h, in_w = images.shape[1], images.shape[2]
     if out_h > in_h or out_w > in_w:
         raise ValueError(
             f"cnn_input_size ({out_h},{out_w}) exceeds the host-resized "
             f"image ({in_h},{in_w}); the reference-faithful pipeline "
             f"crops, never upsamples. Use cnn_input_size <= {in_h}.")
+
+
+def _crop_batch(images_u8, out_h: int, out_w: int, device: torch.device,
+                training: bool, generator: Optional[torch.Generator],
+                draws=None) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> (B, out_h, out_w, 3) float32 0-255 on
+    ``device``: the train flip and crop (``draws``, draw_augment's triple
+    for these rows, else drawn from ``generator``), or the eval central
+    crop-or-pad. Raises where the crop is larger than the image."""
+    images = torch.as_tensor(images_u8).to(device, non_blocking=True)
+    in_h, in_w = images.shape[1], images.shape[2]
+    check_crop(in_h, in_w, out_h, out_w)
     if training:
-        draws = draw_augment(generator, images.shape[0], in_h, in_w,
-                             out_h, out_w)
+        if draws is None:
+            draws = draw_augment(generator, images.shape[0], in_h, in_w,
+                                 out_h, out_w)
         return augment(images.float(), out_h, out_w,
                        *(t.to(device) for t in draws))
     return central_crop_or_pad(images.float(), out_h, out_w)
@@ -130,12 +137,14 @@ def _crop_batch(images_u8, out_h: int, out_w: int, device: torch.device,
 
 def preprocess_batch(images_u8, out_h: int, out_w: int,
                      device: torch.device, training: bool = False,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     draws=None) -> torch.Tensor:
     """(B, 256, 256, 3) uint8 (numpy or tensor) -> (B, 3, out_h, out_w)
     float32 in [-1, 1] on ``device``, inception style. ``training`` takes
-    the random flip and crop, drawn from ``generator``."""
-    x = _crop_batch(images_u8, out_h, out_w, device, training, generator)
+    the random flip and crop: ``draws`` (draw_augment's triple for these
+    rows) when given, else drawn from ``generator``."""
+    x = _crop_batch(images_u8, out_h, out_w, device, training, generator,
+                    draws)
     # (x / 255 - .5) * 2 as the one fused multiply-add x * (2/255) - 1 that
     # XLA folds the reference's expression into: same input bits. A zero
     # pad pixel maps to -1 either way.
@@ -145,12 +154,13 @@ def preprocess_batch(images_u8, out_h: int, out_w: int,
 
 def preprocess_batch_vgg(images_u8, out_h: int, out_w: int,
                          device: torch.device, training: bool = False,
-                         generator: Optional[torch.Generator] = None
-                         ) -> torch.Tensor:
+                         generator: Optional[torch.Generator] = None,
+                         draws=None) -> torch.Tensor:
     """The VGG/ResNet path (vgg_preprocessing.py:286-365): the same crops
     as ``preprocess_batch``, on the 0-255 values, minus the RGB means ->
     (B, 3, out_h, out_w) float32 on ``device``."""
-    x = _crop_batch(images_u8, out_h, out_w, device, training, generator)
+    x = _crop_batch(images_u8, out_h, out_w, device, training, generator,
+                    draws)
     x = x - torch.tensor(VGG_MEANS_RGB, dtype=torch.float32, device=x.device)
     return x.permute(0, 3, 1, 2).contiguous()
 

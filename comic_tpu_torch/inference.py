@@ -21,9 +21,9 @@ import os
 import pickle
 import re
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from . import DeviceLike, resolve_device
@@ -36,7 +36,10 @@ from .evaluation.coco_eval import (
     write_caption_json,
     write_score_artifacts,
 )
-from .models.captioner import build_model_spec, init_params, max_decode_steps
+from .models.captioner import (build_model_spec, init_params,
+                               max_decode_steps, tree_to)
+from .parallel.mesh import (Mesh, available_devices, make_mesh_for_batch,
+                            process_count, shard_batch, start_host_fetch)
 from .tokenization import Vocabulary, ids_to_captions
 from .training import checkpoints as ckpt
 
@@ -71,11 +74,11 @@ def _ckpt_name(ckpt_path: str) -> str:
 
 
 def _refuse_multiprocess() -> None:
-    """Serving is one process per host; refuse inside a multi-process
-    torch.distributed job, whose per-rank outputs would be partial."""
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
+    """Serving is one process per host, whose mesh is the cards it drives;
+    refuse inside a multi-process torch.distributed job, as comic_tpu
+    does: each rank would caption and write the whole set. Runs before
+    the mesh, the checkpoint or the pipeline is made."""
+    if process_count() > 1:
         raise NotImplementedError(
             "serving under a multi-process torch.distributed job is not "
             "supported — launch inference as a single-process job per "
@@ -84,13 +87,21 @@ def _refuse_multiprocess() -> None:
 
 def make_serve_fn(spec, config: Config, steps: int,
                   collect_alignments: bool = True,
-                  device: DeviceLike = None):
+                  device: DeviceLike = None, mesh: Optional[Mesh] = None):
     """The serving fn (params, images_u8) -> (ids (B, T) int32 on the
     device, alignments (B, H, T, L) or None), for ``device`` (None: the
     card).
 
     Beam search when ``infer_beam_size`` > 1 (its attention step is the
     grouped kernel K1 on the card), greedy otherwise (kernel K2).
+
+    With a ``mesh`` (one process's cards) each card takes a contiguous
+    block of the batch with its own copy of the parameters (made once
+    per parameter tree), and the outputs come back concatenated in block
+    order on the mesh's first card. The first block runs on this thread
+    and each other block on a thread of its own, so the cards' decode
+    loops (their launches and early-exit syncs) overlap. Early exit is per
+    block and gives the same ids as the whole batch's loop.
     """
     device = resolve_device(device)
     h, w = config.cnn_input_size
@@ -100,7 +111,7 @@ def make_serve_fn(spec, config: Config, steps: int,
     early = bool(config.get("infer_early_exit"))
 
     @torch.inference_mode()
-    def serve(params, images_u8):
+    def serve_block(params, images_u8, device):
         images = preprocess(images_u8, h, w, device)
         if beam > 1:
             top, _ = beam_search(params, spec, images, beam_size=beam,
@@ -115,26 +126,41 @@ def make_serve_fn(spec, config: Config, steps: int,
             return top.ids, None
         return top.ids, top.alignments
 
+    if mesh is None:
+        return lambda params, images_u8: serve_block(params, images_u8,
+                                                     device)
+    _refuse_multiprocess()  # defense in depth for direct callers
+    copies = {}  # the parameters on each card, for the last tree served
+
+    def serve(params, images_u8):
+        if copies.get("of") is not params:
+            copies.clear()
+            copies["of"] = params
+            copies.update({d: tree_to(params, d) for d in set(mesh.devices)})
+        (d0, x0), *others = zip(mesh.devices, shard_batch(mesh, images_u8))
+        with ThreadPoolExecutor(max(len(others), 1)) as pool:
+            rest = [pool.submit(serve_block, copies[d], x, d)
+                    for d, x in others]
+            outs = [serve_block(copies[d0], x0, d0)]
+            outs += [f.result() for f in rest]
+        first = mesh.devices[0]
+        ids = torch.cat([o[0].to(first) for o in outs])
+        if not collect_alignments:
+            return ids, None
+        return ids, torch.cat([o[1].to(first) for o in outs])
+
     return serve
 
 
-class _HostCopy:
-    """A device->host copy started now and read later, so the host turns
-    batch i's ids into text while the card decodes batch i+1."""
-
-    def __init__(self, x: torch.Tensor):
-        if x.device.type == "cuda":
-            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            self.host.copy_(x, non_blocking=True)
-            self.done = torch.cuda.Event()
-            self.done.record()
-        else:
-            self.host, self.done = x, None
-
-    def numpy(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
-        return self.host.numpy()
+def _serve_mesh(config: Config, device: DeviceLike) -> Mesh:
+    """The cards a serve fn of ``device`` spreads its batch over: of the
+    cards ``device`` names (parallel.available_devices), the most that
+    divide batch_size_infer, capped by num_data_shards (the CPU: one
+    block)."""
+    return make_mesh_for_batch(
+        config.batch_size_infer,
+        limit=int(config.get("num_data_shards") or 0),
+        devices=available_devices(device))
 
 
 def run_inference(config: Config, ckpt_path: str,
@@ -146,7 +172,7 @@ def run_inference(config: Config, ckpt_path: str,
 
     Returns (save_dir, caption_json_path).
     """
-    _refuse_multiprocess()
+    _refuse_multiprocess()  # before the checkpoint or the pipeline
     device = resolve_device(device)
     vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
     spec = build_model_spec(config, vocab)
@@ -160,7 +186,8 @@ def run_inference(config: Config, ckpt_path: str,
         if serve is None:
             serve = make_serve_fn(spec, config, steps,
                                   collect_alignments=save_attention,
-                                  device=device)
+                                  device=device,
+                                  mesh=_serve_mesh(config, device))
         ckpt_name = _ckpt_name(ckpt_path)
         save_dir = pjoin(config.log_path, infer_dir_name(config))
         os.makedirs(save_dir, exist_ok=True)
@@ -201,11 +228,12 @@ def run_inference(config: Config, ckpt_path: str,
                     "save_attention=True but the serve fn returned no "
                     "alignment maps — it was built with "
                     "collect_alignments=False.")
-            ids = _HostCopy(ids)
+            ids, = start_host_fetch(ids)
             if pending is not None:
                 n_done += consume(*pending)
             # maps are big ((B, H, T, L) f32): copy them only while wanted
-            attn = _HostCopy(attn) if save_attention and wants_maps() else None
+            attn = (start_host_fetch(attn)[0]
+                    if save_attention and wants_maps() else None)
             pending = (ids, attn, files)
         if pending is not None:
             n_done += consume(*pending)
@@ -305,7 +333,8 @@ def sweep_checkpoints(config: Config,
         spec = build_model_spec(config, vocab)
         serve = make_serve_fn(spec, config, max_decode_steps(config, vocab),
                               collect_alignments=save_attention,
-                              device=device)
+                              device=device,
+                              mesh=_serve_mesh(config, device))
         pipe = InferencePipeline(config)
     results = {}
     try:

@@ -149,6 +149,13 @@ class DropoutMasks(NamedTuple):
                                              "keep_align")
             if getattr(self, k) is not None})
 
+    def rows(self, start: int, count: int) -> "DropoutMasks":
+        """The masks of batch rows [start, start + count) of a decode."""
+        rows = slice(start, start + count)
+        return self._replace(**{
+            k: (v[:, rows] if k.startswith("keep") else v[rows])
+            for k, v in self._asdict().items() if v is not None})
+
 
 def draw_dropout_masks(cfg: DecoderConfig, batch: int, steps: int,
                        positions: int, generator: torch.Generator,

@@ -106,12 +106,14 @@ def _fused_add_ln_attention(query, keys, v, ln_scale, ln_bias, temperature,
     ctx = torch.empty((r, u), dtype=torch.float32, device=dev)
     align = torch.empty((r, num_heads, l), dtype=torch.float32, device=dev)
     fn = _cuda.kernel("fused_add_ln_attention", _ARGTYPES)
-    err = fn(query.data_ptr(), keys.data_ptr(),
-             int(keys.dtype == torch.bfloat16),
-             _cuda.vector_width(keys, u // num_heads), v.data_ptr(),
-             ln_scale.data_ptr(), ln_bias.data_ptr(), temperature.data_ptr(),
-             ctx.data_ptr(), align.data_ptr(), r, l, u, num_heads,
-             _cuda.stream_handle(dev))
+    with torch.cuda.device(dev):  # the C side plans and launches on it
+        err = fn(query.data_ptr(), keys.data_ptr(),
+                 int(keys.dtype == torch.bfloat16),
+                 _cuda.vector_width(keys, u // num_heads), v.data_ptr(),
+                 ln_scale.data_ptr(), ln_bias.data_ptr(),
+                 temperature.data_ptr(), ctx.data_ptr(), align.data_ptr(),
+                 r, l, u, num_heads,
+                 _cuda.stream_handle(dev))
     if err:
         raise RuntimeError(
             f"fused_add_ln_attention launch failed: CUDA error {err}")

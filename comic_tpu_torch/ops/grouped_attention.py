@@ -120,13 +120,15 @@ def _grouped_add_ln_attention(query, keys, key_mean, key_m2, v, ln_scale,
     align = torch.empty((b, k, num_heads, l), dtype=torch.float32,
                         device=dev)
     fn = _cuda.kernel("grouped_add_ln_attention", _ARGTYPES)
-    err = fn(query.data_ptr(), keys.data_ptr(),
-             int(keys.dtype == torch.bfloat16),
-             _cuda.vector_width(keys, u // num_heads), key_mean.data_ptr(),
-             key_m2.data_ptr(), v.data_ptr(), ln_scale.data_ptr(),
-             ln_bias.data_ptr(), temperature.data_ptr(), ctx.data_ptr(),
-             align.data_ptr(), b, k, l, u, num_heads,
-             _cuda.stream_handle(dev))
+    with torch.cuda.device(dev):  # the C side plans and launches on it
+        err = fn(query.data_ptr(), keys.data_ptr(),
+                 int(keys.dtype == torch.bfloat16),
+                 _cuda.vector_width(keys, u // num_heads),
+                 key_mean.data_ptr(), key_m2.data_ptr(), v.data_ptr(),
+                 ln_scale.data_ptr(), ln_bias.data_ptr(),
+                 temperature.data_ptr(), ctx.data_ptr(), align.data_ptr(),
+                 b, k, l, u, num_heads,
+                 _cuda.stream_handle(dev))
     if err:
         raise RuntimeError(
             f"grouped_add_ln_attention launch failed: CUDA error {err}")

@@ -31,8 +31,22 @@ hypotheses come from parameters one update older than those its gradient
 is applied to (comic_tpu's one-step-stale schedule); the run trains
 exactly ``max_step`` steps. ``scst_overlap=False`` is the reference's
 on-policy schedule: rollout, score and train on the same batch. The
-decoders run only to the batch's longest hypothesis (``xe._trim``), where
-comic_tpu pads to ``hypo_width`` and masks: the losses are the same.
+decoders run only to the batch's longest hypothesis
+(``xe._trim_global``), where comic_tpu pads to ``hypo_width`` and masks:
+the losses are the same.
+
+Data parallelism (parallel/): in a torch.distributed job the global batch
+is ``batch_size_train`` itself. The SCST pipeline is not split: every rank
+loads the whole batch and its references, takes its contiguous block of
+images (``feed_global``) for the rollout, scores its own block against
+its slice of the references (``host_score_shard``) and runs the
+reward-weighted step on its hypotheses. As in the XE step (training/xe.py)
+the ranks agree on the global longest hypothesis, each adds its share of
+the global loss, rank 0 alone adds the L2 term, the draws are taken at
+the global shape, and the gradients are summed by one coalesced
+all_reduce before the optimizer's clip. The score metrics (reward,
+score_sample, score_greedy) are each rank's own block's, as comic_tpu
+logs each host's.
 """
 
 from __future__ import annotations
@@ -57,13 +71,18 @@ from ..models.captioner import (ModelSpec, attention_map_loss,
                                 process_captions, sequence_loss)
 from ..models.decoder import teacher_forced
 from ..models.encoders import encode_images
+from ..parallel.mesh import (Mesh, all_reduce_grads, barrier, feed_global,
+                             global_batch, local_batch, local_batch_start,
+                             make_mesh_for_batch, process_count,
+                             process_index, replicate)
 from ..tokenization import (RadixCodec, Vocabulary,
                             caption_strings_to_batched_ids, ids_to_captions)
 from ..utils.summaries import SummaryWriter
 from . import checkpoints as ckpt
-from .optimizer import Optimizer, masked_l2_loss, set_trainable
+from .optimizer import Optimizer, masked_l2_loss, set_trainable, tree_get
 from .schedule import cosine_schedule
-from .xe import TrainState, _resolve_vocab, _trim
+from .xe import (TrainState, _block_augment, _block_dropout, _resolve_vocab,
+                 _trim_global)
 
 SCST_MAX_WORDS = 20  # forced during SCST sampling (model_base.py:203-206)
 
@@ -88,7 +107,9 @@ def make_rollout(spec: ModelSpec, config: Config, vocab: Vocabulary,
     (K, B, T), im_embed, fmaps), under no_grad on ``device``. The beam ids
     are in the reference's beam-major layout, so host scoring sees
     [im0_b0..imN_b0, im0_b1, ...]. ``generator`` (on ``device``) draws the
-    augment."""
+    augment. In a job ``images_u8`` is the rank's ProcessBlock of the
+    global batch (``feed_global``), the augment is drawn for the global
+    batch, and the ids come back as the rank's blocks of the global ids."""
     device = resolve_device(device)
     h, w = config.cnn_input_size
     beam = int(config.scst_beam_size)
@@ -98,8 +119,11 @@ def make_rollout(spec: ModelSpec, config: Config, vocab: Vocabulary,
 
     @torch.no_grad()
     def rollout(params, images_u8, generator: Optional[torch.Generator] = None):
+        images_u8 = local_batch(images_u8)
+        draws = (_block_augment(generator, images_u8, h, w) if augment
+                 else None)
         images = preprocess(images_u8, h, w, device, training=augment,
-                            generator=generator)
+                            draws=draws)
         im_embed, fmaps = encode_images(
             params["encoder"], images, spec.cnn_name, spec.fm_endpoint,
             legacy=spec.legacy, dtype=spec.compute_dtype)
@@ -115,7 +139,8 @@ def make_rollout(spec: ModelSpec, config: Config, vocab: Vocabulary,
             params["decoder"], spec, im_embed, memory, beam_size=beam,
             max_steps=steps, length_penalty=0.0, collect_alignments=False,
             early_exit=True)
-        return greedy.ids, all_beams["ids"], im_embed, fmaps
+        return (global_batch(None, greedy.ids),
+                global_batch(None, all_beams["ids"], axis=1), im_embed, fmaps)
 
     return rollout
 
@@ -127,8 +152,11 @@ def make_scst_train_step(spec: ModelSpec, config: Config,
     rollout) and are repeated on the device to the hypothesis rows;
     ``hypo_ids`` (B*K, W) and ``rewards`` (B*K,) are IMAGE-major (row i*K +
     k = image i, hypothesis k). ``generator`` (on ``device``) draws the
-    dropout."""
+    dropout. Built inside a torch.distributed job, the step takes the
+    rank's hypotheses and rewards (arrays or ProcessBlocks) and its
+    metrics are the global batch's (module docstring)."""
     device = resolve_device(device)
+    world, rank = process_count(), process_index()
     beam = int(config.scst_beam_size)
     map_scale = float(config.rnn_map_loss_scale)
     l2_decay = float(config.l2_decay)
@@ -136,7 +164,8 @@ def make_scst_train_step(spec: ModelSpec, config: Config,
     def train_step(state: TrainState, im_embed, fmaps, hypo_ids, rewards,
                    generator: Optional[torch.Generator] = None):
         params, opt = state.params, state.optimizer
-        caps, steps = _trim(hypo_ids)
+        hypo_ids, rewards = local_batch(hypo_ids), local_batch(rewards)
+        caps, steps, _ = _trim_global(hypo_ids)
         caps = torch.as_tensor(caps).to(device, non_blocking=True)
         rewards = torch.as_tensor(np.asarray(rewards, np.float32)).to(device)
         im_k = im_embed.repeat_interleave(beam, dim=0)
@@ -144,15 +173,23 @@ def make_scst_train_step(spec: ModelSpec, config: Config,
         inputs, targets, mask = process_captions(caps)
         logits, alignments = teacher_forced(
             params["decoder"], spec.decoder, inputs, im_k, fm_k,
-            training=True, generator=generator, dtype=spec.compute_dtype)
+            training=True, dtype=spec.compute_dtype,
+            dropout=_block_dropout(spec.decoder, inputs, fm_k.shape[1],
+                                   generator))
         per_example = sequence_loss(logits, targets, mask,
                                     average_across_batch=False)
-        xe = (per_example * rewards).mean()
+        # this rank's shares of the global batch's losses (equal blocks:
+        # the global mean is the mean of the blocks' means)
+        xe = (per_example * rewards).mean() / world
         map_loss = attention_map_loss(alignments, map_scale,
-                                      valid_steps=steps)
+                                      valid_steps=steps) / world
         reg = masked_l2_loss(params, opt.mask, l2_decay)
+        # the L2 term is the same on every rank: add it once
+        (xe + map_loss + (reg if rank == 0 else 0.0)).backward()
+        xe, map_loss = all_reduce_grads(
+            [tree_get(params, p) for p in opt.paths],
+            torch.stack([xe, map_loss]).detach())
         total = xe + map_loss + reg
-        total.backward()
         opt.step(params)
         metrics = {"scst_loss": xe, "map_loss": map_loss, "reg": reg,
                    "total_loss": total}
@@ -189,35 +226,56 @@ def score_and_encode(
 
 
 def host_score_shard(greedy_ids, beam_ids, refs, scorer: CaptionScorer,
-                     config: Config, vocab: Vocabulary, width: int
+                     config: Config, vocab: Vocabulary, width: int,
+                     mesh: Optional[Mesh] = None
                      ) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
-    """Host scoring half of one SCST step -> (hypo_ids, rewards, metrics),
-    one process (comic_tpu's multi-host shard waits for data parallelism).
+    """Host scoring half of one SCST step -> (hypo_ids, rewards, metrics).
     The scorer works beam-major (row k*B + i, model_base.py:286-288); the
-    rows are reordered IMAGE-major (row i*K + k) for the train step."""
+    rows are reordered IMAGE-major (row i*K + k) for the train step.
+
+    In a job each rank scores only ITS block of the rollout
+    (``local_batch``) against ITS slice of the references (the pipeline is
+    not split, so every rank holds the whole batch's refs and slices them
+    by its block), and its rows go back as its block of the global batch
+    (``global_batch``): no caption crosses between ranks. In one process
+    the helpers are the identity."""
+    n_proc = process_count()
+    if n_proc > 1:
+        n_local = len(refs) // n_proc
+        lo = process_index() * n_local
+        # the refs slice assumes this rank's rows ARE the global block
+        # [lo, lo + n_local); check it against the rollout's placement so
+        # a surprise fails loudly instead of scoring against the wrong
+        # images' references
+        got = local_batch_start(greedy_ids)
+        if got != lo:
+            raise ValueError(
+                f"multi-process SCST: process {process_index()} holds rows "
+                f"starting at {got}, expected {lo}; the rollout's blocks "
+                "are not in rank order (feed the images through "
+                "feed_global).")
+        refs = refs[lo: lo + n_local]
     hypo_ids, rewards, score_metrics = score_and_encode(
-        scorer, config, vocab, refs, _host(greedy_ids), _host(beam_ids),
-        width)
+        scorer, config, vocab, refs, local_batch(greedy_ids),
+        local_batch(beam_ids, axis=1), width)
     beam = int(config.scst_beam_size)
     batch = hypo_ids.shape[0] // beam
     hypo_ids = hypo_ids.reshape(beam, batch, -1).transpose(1, 0, 2) \
         .reshape(beam * batch, -1)
     rewards = rewards.reshape(beam, batch).T.reshape(-1)
+    if mesh is not None:
+        hypo_ids = global_batch(mesh, hypo_ids)
+        rewards = global_batch(mesh, rewards)
     return hypo_ids, rewards, score_metrics
 
 
-def _host(ids) -> np.ndarray:
-    return ids.cpu().numpy() if isinstance(ids, torch.Tensor) \
-        else np.asarray(ids)
-
-
 def _finish_step(pending, state, train_step, scorer, config, vocab, width,
-                 generator, step):
+                 generator, step, mesh=None):
     """Score the pending rollout (host_score_shard), then run the
     reward-weighted train step -> (state, metrics, step + 1)."""
     (greedy_ids, beam_ids, im_embed, fmaps), refs = pending
     hypo_ids, rewards, score_metrics = host_score_shard(
-        greedy_ids, beam_ids, refs, scorer, config, vocab, width)
+        greedy_ids, beam_ids, refs, scorer, config, vocab, width, mesh)
     state, metrics = train_step(state, im_embed, fmaps, hypo_ids, rewards,
                                 generator)
     metrics = dict(metrics)
@@ -286,16 +344,25 @@ def _train_scst(config: Config, spec: ModelSpec, vocab: Vocabulary, pipe,
         params, config.checkpoint_path,
         resume=bool(config.resume_training),
         exclude_scopes=config.checkpoint_exclude_scopes, optimizer=optimizer)
-    set_trainable(params, optimizer.mask)
     print(f"INFO: restore mode = {mode}, start step = {start_step}")
 
-    os.makedirs(config.log_path, exist_ok=True)
-    config.save(config.log_path)
+    # in a job the global batch is batch_size_train, split over the ranks,
+    # and every rank starts from rank 0's parameters and moments
+    mesh = make_mesh_for_batch(
+        config.batch_size_train,
+        limit=int(config.get("num_data_shards") or 0), devices=[device])
+    replicate(mesh, [params, optimizer.moments])
+    set_trainable(params, optimizer.mask)
+
+    chief = process_index() == 0  # only rank 0 writes the run's files
+    if chief:
+        os.makedirs(config.log_path, exist_ok=True)
+        config.save(config.log_path)
 
     rollout = make_rollout(spec, config, vocab, device)
     train_step = make_scst_train_step(spec, config, device)
     width = hypo_width(config, vocab)
-    writer = SummaryWriter(config.log_path)
+    writer = SummaryWriter(config.log_path, enabled=chief)
     saver = ckpt.make_saver(config.get("checkpoint_backend", "msgpack"))
     save_every = max(config.split_sizes["train"] // config.batch_size_train,
                      1)
@@ -319,17 +386,18 @@ def _train_scst(config: Config, spec: ModelSpec, vocab: Vocabulary, pipe,
                             < max_step)
             if need_rollout:
                 images, refs = next(data_iter)
-                out = rollout(state.params, images, generator)
+                out = rollout(state.params, feed_global(mesh, images),
+                              generator)
             if not overlap:
                 state, metrics, step = _finish_step(
                     (out, refs), state, train_step, scorer, config, vocab,
-                    width, generator, step)
+                    width, generator, step, mesh)
                 n_since += config.batch_size_train
             else:
                 if pending is not None:
                     state, metrics, step = _finish_step(
                         pending, state, train_step, scorer, config, vocab,
-                        width, generator, step)
+                        width, generator, step, mesh)
                     n_since += config.batch_size_train
                 pending = (out, refs) if need_rollout else None
 
@@ -342,7 +410,7 @@ def _train_scst(config: Config, spec: ModelSpec, vocab: Vocabulary, pipe,
                       f"{m.get('reward', 0):.4f} "
                       f"{n_since / max(dt, 1e-9):.1f} ex/s")
                 t_last, n_since = time.time(), 0
-            if step > 0 and step % save_every == 0:
+            if step > 0 and step % save_every == 0 and chief:
                 saver.save(config.log_path, step, state.params,
                            optimizer.state_dict(state.params),
                            max_saves=config.max_saves)
@@ -350,13 +418,15 @@ def _train_scst(config: Config, spec: ModelSpec, vocab: Vocabulary, pipe,
         if pending is not None:
             state, metrics, step = _finish_step(
                 pending, state, train_step, scorer, config, vocab, width,
-                generator, step)
-        saver.save(config.log_path, step, state.params,
-                   optimizer.state_dict(state.params),
-                   max_saves=config.max_saves)
+                generator, step, mesh)
+        if chief:
+            saver.save(config.log_path, step, state.params,
+                       optimizer.state_dict(state.params),
+                       max_saves=config.max_saves)
     finally:
         if hasattr(data_iter, "close"):
             data_iter.close()
         saver.close()
         writer.close()
+    barrier()  # rank 0's files are complete before any rank returns
     return {k: float(v) for k, v in metrics.items()}

@@ -10,6 +10,20 @@ the pad steps of the bucket width would be masked out of both losses
 (comic_tpu masks them), so the losses are the same. The attention kernels
 stay off every step that needs a gradient (models/attention.py); the
 eval-perplexity pass runs under no_grad, where K2 takes the attention.
+
+Data parallelism (parallel/): in a torch.distributed job each rank runs
+the step on its block of the global batch (batch_size_train rows a rank)
+and the step equals the one-process step on the global batch. The ranks
+agree first on the global longest caption and the global count of target
+tokens (one all_gather); each scales its XE and attention-map terms to
+its share of the global batch's, rank 0 alone adds the L2 term, and the
+gradients are summed by one coalesced all_reduce before the optimizer's
+per-leaf clip. The augment and dropout are drawn at the global batch's
+shape and each rank takes its rows, so even with dropout on the W-rank
+step is the one-process step. Outside a job the same code runs with one
+rank: the share is 1 and the collectives are the identity. The CNN's
+BatchNorm runs in inference mode in every stage (moving statistics
+frozen, as in comic_tpu), so no statistics are synchronised.
 """
 
 from __future__ import annotations
@@ -25,22 +39,30 @@ from .. import DeviceLike, resolve_device
 from ..configuration import Config
 from ..data import captions as cap_io
 from ..data.pipeline import PAD_ID, TrainPipeline
-from ..data.preprocessing import preprocess_for
+from ..data.preprocessing import check_crop, draw_augment, preprocess_for
 from ..models.captioner import (
     ModelSpec,
     attention_map_loss,
     build_model_spec,
     init_params,
+    process_captions,
+    sequence_loss,
     xe_forward,
 )
+from ..models.decoder import DropoutMasks, draw_dropout_masks, teacher_forced
+from ..models.encoders import encode_images
 from ..models.layers import count_params
+from ..parallel.mesh import (Mesh, all_gather_ints, all_reduce_grads,
+                             all_reduce_sum, barrier, feed_global,
+                             make_mesh_for_batch, process_count,
+                             process_index, replicate)
 from ..params import jax_shape
 from ..tokenization import Vocabulary, build_char_vocab
 from ..utils.profiling import StepTracer
 from ..utils.summaries import SummaryWriter
 from . import checkpoints as ckpt
 from .optimizer import (Optimizer, masked_l2_loss, path_string,
-                        set_trainable, tree_items)
+                        set_trainable, tree_get, tree_items)
 from .schedule import cosine_schedule, legacy_halving_schedule
 
 Params = Dict[str, Any]
@@ -61,6 +83,43 @@ def _trim(captions: np.ndarray) -> Tuple[np.ndarray, int]:
     return caps[:, : n + 1], n
 
 
+def _trim_global(captions: np.ndarray) -> Tuple[np.ndarray, int, float]:
+    """A rank's block of (B, W) padded ids -> (its first n + 1 columns, n,
+    its share of the global batch's target tokens): n is the GLOBAL
+    batch's longest caption in decode steps (comic_tpu's dyn_steps is a max
+    over the global batch), so every rank runs the same steps. One
+    all_gather; outside a job ``_trim`` and a share of 1."""
+    caps = np.asarray(captions)
+    valid = caps[:, 1:] != PAD_ID
+    tokens = int(valid.sum())
+    gathered = all_gather_ints([int(valid.sum(axis=1).max()), tokens])
+    n = int(gathered[:, 0].max())
+    return caps[:, : n + 1], n, tokens / max(int(gathered[:, 1].sum()), 1)
+
+
+def _block_augment(generator: torch.Generator, images_u8, out_h: int,
+                   out_w: int):
+    """draw_augment's flips and crops for this rank's block of images,
+    drawn for the whole global batch (the block's rows of it), so the
+    ranks draw what one process draws for the global batch."""
+    b, in_h, in_w = images_u8.shape[:3]
+    check_crop(in_h, in_w, out_h, out_w)
+    draws = draw_augment(generator, b * process_count(), in_h, in_w,
+                         out_h, out_w)
+    start = process_index() * b
+    return tuple(d[start: start + b] for d in draws)
+
+
+def _block_dropout(cfg, inputs: torch.Tensor, positions: int,
+                   generator: torch.Generator) -> DropoutMasks:
+    """The train-time dropout masks of this rank's block of a decode,
+    drawn for the whole global batch as ``_block_augment`` draws."""
+    b, steps = inputs.shape
+    masks = draw_dropout_masks(cfg, b * process_count(), steps, positions,
+                               generator, inputs.device)
+    return masks.rows(process_index() * b, b)
+
+
 def _scope_norms(tree: Params, prefix: str) -> Dict[str, torch.Tensor]:
     """Global norm of each top-level scope (the reference's per-variable
     histograms, train_fn.py:95-106, reduced to norms as comic_tpu does)."""
@@ -73,8 +132,11 @@ def make_train_step(spec: ModelSpec, config: Config, image_size,
                     device: DeviceLike = None) -> Callable:
     """The train step (state, images_u8, captions, generator) -> (state,
     metrics of 0-d tensors). ``generator`` (on ``device``) draws the
-    augment and the dropout."""
+    augment and the dropout. Built inside a torch.distributed job, the
+    step takes the rank's block of the global batch and its metrics are
+    the global batch's (module docstring)."""
     device = resolve_device(device)
+    world, rank = process_count(), process_index()
     h, w = image_size
     augment = bool(config.cnn_input_augment)
     preprocess = preprocess_for(config.cnn_name)
@@ -86,17 +148,32 @@ def make_train_step(spec: ModelSpec, config: Config, image_size,
     def train_step(state: TrainState, images_u8, captions,
                    generator: Optional[torch.Generator] = None):
         params, opt = state.params, state.optimizer
-        caps, steps = _trim(captions)
+        caps, steps, share = _trim_global(captions)
         caps = torch.as_tensor(caps).to(device, non_blocking=True)
+        draws = (_block_augment(generator, images_u8, h, w) if augment
+                 else None)
         images = preprocess(images_u8, h, w, device, training=augment,
-                            generator=generator)
-        log_ppl, aux = xe_forward(params, spec, images, caps, training=True,
-                                  generator=generator)
-        map_loss = attention_map_loss(aux["alignments"], map_scale,
-                                      valid_steps=steps)
+                            draws=draws)
+        im_embed, fmaps = encode_images(
+            params["encoder"], images, spec.cnn_name, spec.fm_endpoint,
+            legacy=spec.legacy, dtype=spec.compute_dtype)
+        inputs, targets, mask = process_captions(caps)
+        logits, alignments = teacher_forced(
+            params["decoder"], spec.decoder, inputs, im_embed, fmaps,
+            training=True, dtype=spec.compute_dtype,
+            dropout=_block_dropout(spec.decoder, inputs, fmaps.shape[1],
+                                   generator))
+        # this rank's shares of the global batch's losses (equal blocks)
+        log_ppl = sequence_loss(logits, targets, mask) * share
+        map_loss = attention_map_loss(alignments, map_scale,
+                                      valid_steps=steps) / world
         reg = masked_l2_loss(params, opt.mask, l2_decay)
+        # the L2 term is the same on every rank: add it once
+        (log_ppl + map_loss + (reg if rank == 0 else 0.0)).backward()
+        log_ppl, map_loss = all_reduce_grads(
+            [tree_get(params, p) for p in opt.paths],
+            torch.stack([log_ppl, map_loss]).detach())
         total = log_ppl + map_loss + reg
-        total.backward()
         metrics = {"log_ppl": log_ppl, "map_loss": map_loss, "reg": reg,
                    "total_loss": total}
         if add_grads:
@@ -137,14 +214,37 @@ def make_eval_step(spec: ModelSpec, config: Config, image_size,
     return eval_step
 
 
-def evaluate_perplexity(eval_step, params, pipeline) -> float:
+def evaluate_perplexity(eval_step, params, pipeline,
+                        mesh: Optional[Mesh] = None) -> float:
     """exp of the mean eval log-perplexity over one pass
-    (train_fn.py:320-338); the losses stay on the device until the end."""
-    losses = [eval_step(params, images, caps)
-              for images, caps in pipeline.epoch()]
-    if not losses:
+    (train_fn.py:320-338); the losses stay on the device until the end.
+
+    In a job the eval pipeline is not split: every rank loads the same
+    batches. Where the mesh divides batch_size_eval, each rank scores its
+    block (feed_global) and one all_reduce at the end sums every batch's
+    token losses and token counts; otherwise every rank scores the whole
+    batch (comic_tpu's replicated fallback, xe.py:240-270). Either way the
+    result is the global mean."""
+    if (mesh is None or mesh.processes == 1
+            or pipeline.batch_size % mesh.size):
+        losses = [eval_step(params, images, caps)
+                  for images, caps in pipeline.epoch()]
+        if not losses:
+            return float("nan")
+        mean = torch.stack(losses).mean().item()
+        return float(np.exp(np.float32(mean)))
+    sums, counts = [], []
+    for images, caps in pipeline.epoch():
+        caps = feed_global(mesh, caps).data
+        count = float((caps[:, 1:] != PAD_ID).sum())
+        sums.append(eval_step(params, feed_global(mesh, images).data, caps)
+                    * count)
+        counts.append(count)
+    if not sums:
         return float("nan")
-    mean = torch.stack(losses).mean().item()
+    totals = all_reduce_sum(torch.stack([
+        torch.stack(sums), torch.tensor(counts, device=sums[0].device)]))
+    mean = (totals[0] / totals[1]).mean().item()
     return float(np.exp(np.float32(mean)))
 
 
@@ -234,12 +334,21 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
         params, config.checkpoint_path,
         resume=bool(config.resume_training),
         exclude_scopes=config.checkpoint_exclude_scopes, optimizer=optimizer)
-    set_trainable(params, optimizer.mask)
     print(f"INFO: restore mode = {mode}, start step = {start_step}")
 
-    os.makedirs(config.log_path, exist_ok=True)
-    config.save(config.log_path)
-    _write_model_size(config.log_path, params["decoder"], "decoder")
+    # in a job one step takes batch_size_train rows from EACH rank, and
+    # every rank starts from rank 0's parameters and optimizer moments
+    mesh = make_mesh_for_batch(
+        config.batch_size_train * process_count(),
+        limit=int(config.get("num_data_shards") or 0), devices=[device])
+    replicate(mesh, [params, optimizer.moments])
+    set_trainable(params, optimizer.mask)
+
+    chief = process_index() == 0  # only rank 0 writes the run's files
+    if chief:
+        os.makedirs(config.log_path, exist_ok=True)
+        config.save(config.log_path)
+        _write_model_size(config.log_path, params["decoder"], "decoder")
     print(f"INFO: decoder params {count_params(params['decoder']):,d} / "
           f"total {count_params(params):,d}")
 
@@ -251,7 +360,7 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
     # port runs the K single steps and keeps that cadence
     spc = max(int(config.get("train_steps_per_call") or 1), 1)
 
-    writer = SummaryWriter(config.log_path)
+    writer = SummaryWriter(config.log_path, enabled=chief)
     saver = ckpt.make_saver(config.get("checkpoint_backend", "msgpack"))
     tracer = StepTracer(config.get("profile_dir"), device=device)
     log_every = max(steps_per_epoch // max(config.num_logs_per_epoch, 1), 1)
@@ -263,7 +372,7 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
     t_last, n_since = time.time(), 0
     data_iter = iter(train_pipe)
     metrics: Dict[str, torch.Tensor] = {}
-    logged_image = not bool(config.add_image_summaries)
+    logged_image = not (config.add_image_summaries and chief)
     try:
         while state.step < max_step:
             prev_step = state.step
@@ -274,7 +383,7 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
                                      device)
                     logged_image = True
                 state, metrics = train_step(state, images, caps, generator)
-                n_since += images.shape[0]
+                n_since += images.shape[0] * mesh.processes  # global rows
             step = state.step
             if (step // log_every) != (prev_step // log_every) \
                     or step == max_step:
@@ -290,11 +399,12 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
             tracer.step(step)
             if (step // save_every) != (prev_step // save_every) \
                     or step == max_step:
-                saver.save(config.log_path, step, state.params,
-                           optimizer.state_dict(state.params),
-                           max_saves=config.max_saves)
+                if chief:
+                    saver.save(config.log_path, step, state.params,
+                               optimizer.state_dict(state.params),
+                               max_saves=config.max_saves)
                 eval_ppl = evaluate_perplexity(eval_step, state.params,
-                                               eval_pipe)
+                                               eval_pipe, mesh)
                 writer.scalars(step, {"eval_perplexity": eval_ppl})
                 print(f"step {step}: eval perplexity {eval_ppl:.3f}")
     finally:
@@ -303,6 +413,7 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
         finally:
             saver.close()
             writer.close()
+    barrier()  # rank 0's files are complete before any rank returns
     return {k: float(v) for k, v in metrics.items()}
 
 

@@ -40,11 +40,18 @@ def png_bytes(image_u8: np.ndarray) -> bytes:
 
 
 class SummaryWriter:
-    def __init__(self, log_dir: str, use_tensorboard: bool = True):
-        os.makedirs(log_dir, exist_ok=True)
+    """``enabled`` False writes nothing: the writer of a data-parallel
+    rank other than 0, so one set of files reaches the log directory."""
+
+    def __init__(self, log_dir: str, use_tensorboard: bool = True,
+                 enabled: bool = True):
+        self.enabled = enabled
         self._dir = log_dir
+        self._jsonl = self._tb = None
+        if not enabled:
+            return
+        os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "events.jsonl"), "a")
-        self._tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter as TB
@@ -55,6 +62,8 @@ class SummaryWriter:
                 self._tb = TB(log_dir)
 
     def scalars(self, step: int, values: Dict[str, float]) -> None:
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in values.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
@@ -67,6 +76,8 @@ class SummaryWriter:
     def image(self, step: int, name: str, array_u8) -> None:
         """Log an HWC uint8 RGB image as ``<name>___<step>.png`` (the
         reference's add_image_summaries, train_fn.py:75)."""
+        if not self.enabled:
+            return
         arr = np.asarray(array_u8)
         safe = name.replace("/", "_")
         with open(os.path.join(self._dir, f"{safe}___{int(step)}.png"),
@@ -77,6 +88,7 @@ class SummaryWriter:
             self._tb.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

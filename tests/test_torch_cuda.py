@@ -602,3 +602,69 @@ def test_step_tracer_on_card_records_cuda_kernels(card, tmp_path):
              and e["name"].startswith("ProfilerStep#")]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert len(steps) == 2 and kernels
+
+
+def test_world_one_nccl_step_equals_the_plain_step(card):
+    """Data parallelism on the card: a world-1 NCCL job's XE step (global
+    trim and token count through all_gather, the gradients and losses
+    through one all_reduce) equals the plain one-process step, float32
+    with TF32 off, every updated leaf within 1e-6 of its largest
+    magnitude and the loss within 1e-6 relative."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from comic_tpu_torch.configuration import Config
+    from comic_tpu_torch.entry import free_port
+    from comic_tpu_torch.models import captioner as tcap
+    from comic_tpu_torch.parallel import mesh as pm
+    from comic_tpu_torch.parallel.distributed import \
+        maybe_initialize_distributed
+    from comic_tpu_torch.tokenization import Vocabulary
+    from comic_tpu_torch.training import optimizer as topt
+    from comic_tpu_torch.training.xe import TrainState, make_train_step
+
+    wtoi = {"<PAD>": -1, "a": 0, "dog": 1, "on": 2, "<UNK>": 3, "<GO>": 4,
+            "<EOS>": 5}
+    config = Config(token_type="radix", radix_base=16, rnn_size=32,
+                    rnn_word_size=16, attn_num_heads=2,
+                    compute_dtype="float32", cnn_input_size=(64, 64),
+                    freeze_scopes="", cnn_input_augment=False)
+    spec = tcap.build_model_spec(config, Vocabulary(dict(wtoi)))
+    rng = np.random.default_rng(4)
+    images = rng.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8)
+    caps = np.full((2, 8), -1, np.int32)
+    caps[:, 0], caps[0, 1:6], caps[1, 1:4] = 16, [1, 5, 9, 2, 17], [3, 0, 17]
+    params = tcap.init_params(spec, generator=torch.Generator().manual_seed(2),
+                              device="cpu")
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    try:
+        for job in (False, True):
+            if job:
+                assert maybe_initialize_distributed(
+                    f"127.0.0.1:{free_port()}", 1, 0)
+                assert dist.get_backend() == "nccl"
+            p = tree_to(params, card)
+            opt = topt.Optimizer(p, lambda n: 1e-3, freeze_scopes="")
+            topt.set_trainable(p, opt.mask)
+            calls = pm.all_reduce_grads.calls
+            step = make_train_step(spec, config, (64, 64), card)
+            state, metrics = step(TrainState(p, opt, 0), images, caps,
+                                  torch.Generator(card).manual_seed(3))
+            assert pm.all_reduce_grads.calls == calls + job
+            out.append((float(metrics["total_loss"]),
+                        {k: v.detach().cpu()
+                         for k, v in topt.tree_items(state.params)}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow[0]
+        torch.backends.cudnn.allow_tf32 = allow[1]
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (loss, plain), (job_loss, joined) = out
+    assert abs(job_loss - loss) <= 1e-6 * abs(loss)
+    for k, v in plain.items():
+        scale = v.abs().max().clamp(min=1e-30)
+        assert ((joined[k] - v).abs().max() / scale).item() <= 1e-6, k

@@ -70,3 +70,24 @@ def test_coco_image_id(path):
     assert cap_io.coco_image_id(path) == jcap_io.coco_image_id(path)
     assert cap_io.coco_image_id("val/COCO_val2014_000000123456.jpg") \
         == 123456
+
+
+def test_dryrun_multichip_on_the_cpu(capsys):
+    """__graft_entry__.dryrun_multichip's counterpart as a real 2-process
+    gloo job (one XE step, a K=2 call, an SCST rollout and step, the ranks'
+    parameters equal afterwards), then serving split over 2 devices equal
+    to the unsplit serve."""
+    from comic_tpu_torch.entry import dryrun_multichip
+
+    dryrun_multichip(2, device="cpu", timeout=120)
+    out = capsys.readouterr().out
+    assert "ids (4, 60) equal to the unsplit serve; OK" in out
+
+
+def test_dryrun_multichip_needs_the_card_unless_cpu_is_asked():
+    from comic_tpu_torch.entry import dryrun_multichip
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(1)

@@ -68,6 +68,11 @@ ZOO_MODULES = {f"comic_tpu_torch.models.{m}" for m in (
     "inception_v2", "inception_v3", "inception_v4", "inception_resnet_v2",
     "resnet", "resnet_v2", "vgg", "mobilenet_v1", "mobilenet_v2", "nasnet")}
 
+# the data-parallel slice's modules
+PARALLEL_MODULES = {"comic_tpu_torch.parallel",
+                    "comic_tpu_torch.parallel.mesh",
+                    "comic_tpu_torch.parallel.distributed"}
+
 # libraries that only the functions needing them import
 OPTIONAL_LIBRARIES = ("tensorflow", "tensorstore", "h5py", "PIL", "cv2")
 
@@ -88,6 +93,7 @@ def test_port_imports_no_jax_and_no_comic_tpu():
     assert EVALUATION_MODULES <= names, EVALUATION_MODULES - names
     assert STANDALONE_MODULES <= names, STANDALONE_MODULES - names
     assert ZOO_MODULES <= names, ZOO_MODULES - names
+    assert PARALLEL_MODULES <= names, PARALLEL_MODULES - names
     assert bad.strip() == "[]"
     # importing every module pulls in none of the optional libraries
     assert lazy.strip() == "[]"
@@ -218,3 +224,33 @@ def test_profiling_modules_run_without_jax():
         timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "7"
+
+
+_PARALLEL = r"""
+import sys
+sys.modules.update(dict.fromkeys(%r))
+import comic_tpu_torch.parallel as parallel
+from comic_tpu_torch.parallel import mesh
+assert parallel.maybe_initialize_distributed() is False
+print(",".join(sorted(parallel.__all__)), mesh.make_mesh_for_batch(
+    8, devices=["cpu"] * 4).size)
+"""
+
+
+def test_parallel_modules_run_without_jax(monkeypatch):
+    """comic_tpu_torch.parallel with JAX, comic_tpu and the optional
+    libraries made unimportable: it imports, exports what
+    comic_tpu.parallel exports, and sizes a mesh."""
+    import comic_tpu.parallel as jparallel
+
+    blocked = ["jax", "jaxlib", "flax", "optax", "comic_tpu",
+               *OPTIONAL_LIBRARIES]
+    env = _clean_env()
+    env.pop("COMIC_COORDINATOR", None)
+    out = subprocess.run([sys.executable, "-c", _PARALLEL % (blocked,)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    exports, size = out.stdout.split()
+    assert exports.split(",") == sorted(jparallel.__all__)
+    assert size == "4"

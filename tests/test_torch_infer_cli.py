@@ -24,7 +24,6 @@ from comic_tpu.models import captioner as jcap
 from comic_tpu.training.checkpoints import save_checkpoint
 from comic_tpu_torch import inference as tinf
 from comic_tpu_torch.cli import infer as tcli
-from comic_tpu_torch.cli import train as ttrain
 from comic_tpu_torch.configuration import Config
 from test_torch_native_ciderd import (  # noqa: F401 (fixtures)
     assert_both_native, ciderd_used, native_ciderd)
@@ -351,19 +350,72 @@ def test_main_prints_the_same_lines(saved_experiment, coco, capsys):
     assert lines[1][0].startswith("model_compact-1: Bleu_1=")
 
 
-def test_coordinator_launch_is_refused(saved_experiment, tmp_path,
-                                       monkeypatch):
-    """With COMIC_COORDINATOR set (comic_tpu would join a multi-host job)
-    both of the port's CLIs refuse before writing anything."""
-    monkeypatch.setenv("COMIC_COORDINATOR", "localhost:1234")
+def test_train_cli_joins_a_two_process_job(tmp_path):
+    """Under COMIC_COORDINATOR the train CLI joins the job (gloo, on the
+    CPU), trains the decoder stage on the global batch, and rank 0 alone
+    writes the run: one config record, one model_size.txt stanza, each
+    event once, one pair of checkpoints, which comic_tpu loads."""
+    import torch_multiprocess_worker as worker
+    from flax import serialization
+
+    from comic_tpu.configuration import load_config as jload_config
+    from comic_tpu.training import checkpoints as jckpt
+
+    data, _ = make_synthetic_dataset(str(tmp_path / "data"), num_train=8,
+                                     num_valid=4, num_test=4,
+                                     captions_per_image=1)
+    root = tmp_path / "runs"
+    work = tmp_path / "job"
+    work.mkdir()
+    argv = ["--name", "dp", "--log_root", str(root), "--dataset_dir", data,
+            "--dataset_file_pattern", "synth_{}", "--radix_base", "16",
+            "--rnn_size", "16", "--rnn_word_size", "8", "--attn_num_heads",
+            "2", "--cnn_input_size", "64,64", "--compute_dtype", "float32",
+            "--batch_size_train", "2", "--batch_size_eval", "4",
+            "--max_epoch", "1"]
+    with open(work / "argv.json", "w") as f:
+        json.dump(argv, f)
+    ranks = worker.run_job("train_cli", work, timeout=150)
+    assert [str(r["backend"]) for r in ranks] == ["gloo", "gloo"]
+    assert float(ranks[0]["total_loss"]) == float(ranks[1]["total_loss"])
+    runs = os.listdir(root)
+    assert len(runs) == 1 and not runs[0].startswith("error__")
+    log = os.path.join(root, runs[0])
+    files = sorted(os.listdir(log))
+    # 8 records, 2 a rank: 2 global steps in the epoch
+    assert [f for f in files if not f.startswith(("config___",
+                                                 "events.out"))] == [
+        "config.pkl", "events.jsonl", "input_image___0.png",
+        "model-2.msgpack", "model_compact-2.msgpack", "model_size.txt"]
+    assert sum(f.startswith("config___") for f in files) == 1
+    assert sum(f.startswith("events.out") for f in files) <= 1
+    with open(os.path.join(log, "model_size.txt")) as f:
+        assert f.read().count("INFO: Scope `decoder`") == 1
+    with open(os.path.join(log, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    assert [e["step"] for e in events] == [1, 2, 2]
+    assert "eval_perplexity" in events[-1]
+    assert jload_config(log).batch_size_train == 2
+    path = os.path.join(log, "model_compact-2.msgpack")
+    with open(path, "rb") as f:
+        template = serialization.msgpack_restore(f.read())
+    restored = jckpt.load_compact(path, template)
+    assert set(restored) == {"encoder", "decoder"}
+
+
+def test_infer_cli_joins_then_refuses_the_multiprocess_sweep(
+        saved_experiment, tmp_path):
+    """Under COMIC_COORDINATOR the infer CLI joins the job and then refuses
+    the sweep on every rank, as comic_tpu does, before writing anything."""
+    import torch_multiprocess_worker as worker
+
+    argv = ["--infer_checkpoints_dir", saved_experiment,
+            "--annotations_file", "ann.json"]
+    with open(tmp_path / "argv.json", "w") as f:
+        json.dump(argv, f)
     before = sorted(os.listdir(saved_experiment))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tcli.main(["--infer_checkpoints_dir", saved_experiment,
-                   "--annotations_file", "ann.json"])
+    ranks = worker.run_job("infer_cli", tmp_path, timeout=120)
+    for r in ranks:
+        assert str(r["backend"]) == "gloo" and int(r["world"]) == 2
+        assert "multi-process" in str(r["refused"])
     assert sorted(os.listdir(saved_experiment)) == before
-    root = tmp_path / "train_root"
-    root.mkdir()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttrain.main(["--log_root", str(root), "--dataset_dir", str(root),
-                     "--name", "coord"])
-    assert os.listdir(root) == []

@@ -302,7 +302,10 @@ def test_bucket_helpers_match(synth):
 def test_pipelines_refuse_what_is_not_ported(synth, monkeypatch):
     """The VGG/ResNet host modes are ported: the pipelines build loaders in
     comic_tpu's modes, seeded from the config; what stays refused is an
-    eval batch that does not tile its split and a multi-process job."""
+    eval batch that does not tile its split. In a multi-process job (rank
+    1 of 2) the training split is split as comic_tpu splits it: global
+    batch counts, and the rank's block of a global batch with the global
+    batch's width."""
     jc, tc = _configs(synth, cnn_name="vgg_16")
     tv = tcap_io.load_vocab(synth, "synth_{}")
     for split, mode in (("train", "aspect_train"), ("valid", "aspect_eval")):
@@ -319,6 +322,19 @@ def test_pipelines_refuse_what_is_not_ported(synth, monkeypatch):
         tpipe.TrainPipeline(tc, tv, "valid")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    _, tc = _configs(synth)
-    with pytest.raises(NotImplementedError, match="one process"):
-        tpipe.TrainPipeline(tc, tv, "train")
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
+    monkeypatch.setattr(jax, "process_count", lambda: 2)
+    monkeypatch.setattr(jax, "process_index", lambda: 1)
+    jc, tc = _configs(synth, batch_size_train=2)
+    tp = tpipe.TrainPipeline(tc, tv, "train")
+    jp = jpipe.TrainPipeline(jc, jcap_io.load_vocab(synth, "synth_{}"),
+                             "train")
+    assert (tp.steps_per_epoch, tc.max_step) == (jp.steps_per_epoch,
+                                                 jc.max_step)
+    assert tp.steps_per_epoch == len(tp.records) // 4
+    idxs = next(jp._batches_of_indices())
+    assert len(idxs) == 4
+    for got, want in zip(tp._make_batch(idxs), jp._make_batch(idxs)):
+        assert got.shape[0] == 2
+        np.testing.assert_array_equal(got, want)
+    tp.close()
