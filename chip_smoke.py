@@ -93,11 +93,21 @@ Phases (any failure raises and exits non-zero):
      from the smoke weights' CNN written under slim names and converted by
      convert_slim_tree; GATE_XE_STEPS XE steps of batch 5 (dropout off,
      Adam epsilon 1e-6, the CNN frozen); the infer CLI at beam 3 must score
-     CIDEr > 5 and BLEU-4 > 0.5; 20 SCST steps at beam 3 must keep a finite
+     CIDEr > 5 and BLEU-4 > 0.5; the XE checkpoints served again in
+     float32, with the share of images whose bf16 and f32 top beams agree
+     printed (not a gate); 20 SCST steps at beam 3 must keep a finite
      |reward| < 5 and CIDEr > 4. K1 launches in the sweeps and the SCST
      rollouts, K2 in the eval passes and the greedy baselines, neither in
      a train step;
- 20. zoo-serve: every encoder comic_tpu registers (20 --cnn_name values)
+ 20. parity-gate: comic_tpu_torch.tools.parity_gate at beam 3 on copies of
+     the overfit gate's XE directory (config.pkl and compact checkpoints
+     as train_fn wrote them) against the fixture's test-split references,
+     with the best CIDEr overfit-gate scored there as the target and the
+     Python PTB fallback allowed (the card's machine has no Java): exit 0
+     with that CIDEr to 1e-9 relative; the untrained smoke weights in
+     its place: exit 1 with other captions; without the fallback the gate
+     must raise "PTB jar required". K1 must launch, K2 not;
+ 21. zoo-serve: every encoder comic_tpu registers (20 --cnn_name values)
      at 224 in bf16 with COMIC-256's decoder: seeded port weights with BN
      statistics perturbed, a compact checkpoint, and 2 batches of 25
      seeded images through run_inference at beam 3; K1 must launch once
@@ -106,10 +116,10 @@ Phases (any failure raises and exits non-zero):
      ms, captions/s, launches and peak memory. resnet_v1_50 and
      inception_v3 (one of each preprocessing kind) also serve a batch
      greedy, with K2 on every step;
- 21. zoo-agree: one encoder of each module, float32 with TF32 off, batch
+ 22. zoo-agree: one encoder of each module, float32 with TF32 off, batch
      2, beam 3, card vs the port's CPU path: the attention memory within
      TOL_ZOO of its scale and the top-beam ids equal;
- 22. zoo-train: 10 steps of the training CLI's cnn_finetune stage with
+ 23. zoo-train: 10 steps of the training CLI's cnn_finetune stage with
      resnet_v1_50 at batch 32 (the VGG train augmentation on the card and
      the backward of slim's fixed-pad strided convs): finite losses, the
      checkpoints, 0 kernel launches in every train step, K2 in the eval
@@ -1964,6 +1974,7 @@ def overfit_gate_phase(kernels):
              for e in logs[1:]] or [xe_wall / GATE_XE_STEPS * 1e3]
     xe_sweep, xe_sweep_s = sweep("xe_sweep", xe_dir, "all")
     final = xe_sweep[f"model_compact-{GATE_XE_STEPS}"]
+    agree = bf16_vs_f32(xe_dir, sweep)
     curve = "; ".join(f"{n.split('-')[-1]}: CIDEr {r['CIDEr']:.3f} BLEU-4 "
                       f"{r['Bleu_4']:.3f}" for n, r in xe_sweep.items())
     print(f"{tag} XE: {GATE_XE_STEPS} steps of batch {GATE_B} at lr "
@@ -2028,7 +2039,164 @@ def overfit_gate_phase(kernels):
     print(f"{tag}: the phase in {time.perf_counter() - t_phase:.2f} s; "
           f"launches {dict(zip(names, launches))}: " + "; ".join(
               f"{p} {dict(zip(names, v))}" for p, v in parts.items()))
-    return launches, parts
+    best = max(xe_sweep, key=lambda n: xe_sweep[n]["CIDEr"])
+    return launches, parts, dict(
+        xe_dir=xe_dir, data_dir=data_dir, ann=ann, images=data.images,
+        best=best, best_cider=float(xe_sweep[best]["CIDEr"]),
+        agreement=agree)
+
+
+def read_captions(exp):
+    """{checkpoint name: {image id: caption}} of the caption JSONs of an
+    experiment directory's one sweep directory."""
+    infer = [d for d in os.listdir(exp) if d.startswith("infer_")]
+    if len(infer) != 1:
+        raise AssertionError(f"{exp}: sweep directories {infer}")
+    out = {}
+    for f in sorted(os.listdir(os.path.join(exp, infer[0]))):
+        if f.startswith("captions___") and f.endswith(".json"):
+            with open(os.path.join(exp, infer[0], f)) as fh:
+                out[f[len("captions___"): -len(".json")]] = {
+                    c["image_id"]: c["caption"] for c in json.load(fh)}
+    return out
+
+
+def bf16_vs_f32(xe_dir, sweep):
+    """The overfit gate's trained checkpoints served again in float32 (TF32
+    off, as eval-agree leaves it) through the infer CLI (``sweep``, part
+    'xe_sweep_f32'), against their bf16 sweep: the share of images whose
+    top beams (the caption JSONs) agree, per checkpoint and over all. A
+    printed number, not a gate. -> {name: share}"""
+    import torch
+
+    from comic_tpu_torch.configuration import load_config
+
+    f32_dir = xe_dir + "_f32"
+    shutil.rmtree(f32_dir, ignore_errors=True)
+    config = load_config(xe_dir)
+    config.update(compute_dtype="float32", log_path=f32_dir)
+    config.save(f32_dir)
+    for f in os.listdir(xe_dir):
+        if f.startswith("model_compact-"):
+            shutil.copy(os.path.join(xe_dir, f), f32_dir)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    results, seconds = sweep("xe_sweep_f32", f32_dir, "all")
+    bf16, f32 = read_captions(xe_dir), read_captions(f32_dir)
+    if list(bf16) != list(f32) or any(bf16[n].keys() != f32[n].keys()
+                                      for n in bf16):
+        raise AssertionError(f"bf16 vs f32: the sweeps captioned other "
+                             f"images: {list(bf16)}, {list(f32)}")
+    same = {n: sum(bf16[n][i] == f32[n][i] for i in bf16[n]) for n in bf16}
+    total = sum(len(c) for c in bf16.values())
+    print(f"overfit-gate bf16 vs f32 (TF32 matmul/cuDNN {tf32}): the "
+          f"trained checkpoints served in float32 too ({seconds:.2f} s "
+          f"through cli.infer.main, beam {GATE_BEAM}); top beams agree on "
+          f"{sum(same.values())} of {total} images "
+          f"({sum(same.values()) / total:.3f}): " + "; ".join(
+              f"{n.split('-')[-1]}: {same[n]}/{len(bf16[n])} (f32 CIDEr "
+              f"{results[n]['CIDEr']:.3f})" for n in bf16))
+    return {n: same[n] / len(bf16[n]) for n in bf16}
+
+
+def parity_gate_phase(kernels, gate, state):
+    """Phase parity-gate: comic_tpu_torch.tools.parity_gate (the port's
+    reference-parity gate) on the card, beam 3, on copies of the overfit
+    gate's trained experiment directory (its config.pkl and compact
+    checkpoints, as train_fn wrote them), against the fixture's test-split
+    references as a COCO annotation file, with the best CIDEr that
+    overfit-gate's sweep scored there as the target: (a) PASS: exit 0,
+    best_cider equal to the target to 1e-9 relative; (b) FAIL: the same
+    directory with the untrained smoke weights ``state`` as its checkpoint
+    must exit 1 with other captions; (c) without --allow_ptb_fallback and
+    with no jar the gate must raise "PTB jar required". K1 must launch in
+    (a) and (b), K2 never. -> launches per kernel"""
+    from comic_tpu_torch.tools import parity_gate
+    from comic_tpu_torch.training.checkpoints import save_compact
+
+    tag = "parity-gate"
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT, "parity")
+    shutil.rmtree(root, ignore_errors=True)
+    names = [k.__name__ for k in kernels]
+    target = gate["best_cider"]
+    print(f"{tag}: " + ("no java on PATH" if not shutil.which("java") else
+                        "no CoreNLP jar given") + ": the PASS and FAIL legs "
+          "score through the Python PTB fallback (--allow_ptb_fallback), a "
+          "rehearsal of the gate, not parity evidence")
+
+    def experiment(name, trained):
+        exp = os.path.join(root, name)
+        os.makedirs(exp)
+        shutil.copy(os.path.join(gate["xe_dir"], "config.pkl"), exp)
+        for f in os.listdir(gate["xe_dir"]):
+            if trained and f.startswith("model_compact-"):
+                shutil.copy(os.path.join(gate["xe_dir"], f), exp)
+        if not trained:
+            save_compact(exp, GATE_XE_STEPS, state)
+        return exp
+
+    def argv(exp):
+        return ["--experiment_dir", exp, "--dataset_dir", gate["data_dir"],
+                "--annotations_file", gate["ann"],
+                "--target_cider", repr(target), "--infer_set", "test",
+                "--batch_size_infer", str(GATE_B),
+                "--infer_beam_size", str(GATE_BEAM),
+                "--infer_max_length", str(GATE_MAX_LEN)]
+
+    def run(leg, exp):
+        """The gate's main on ``exp``, the Python PTB fallback allowed ->
+        (exit code, verdict, launches per kernel)."""
+        for k in kernels:
+            k.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with InferImages(lambda: FixtureImages(gate["images"])), \
+                contextlib.redirect_stdout(out):
+            rc = parity_gate.main(argv(exp) + ["--allow_ptb_fallback"])
+        seconds = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        launches = [k.launches for k in kernels]
+        print(f"{tag} {leg}: exit {rc} in {seconds:.2f} s; launches "
+              f"{dict(zip(names, launches))}; verdict {lines[-2]}; "
+              f"{lines[-1]}")
+        if not launches[0] > 0 or launches[1]:
+            raise AssertionError(f"{tag} {leg}: launches {launches}, "
+                                 "expected K1 only")
+        return rc, json.loads(lines[-2]), launches
+
+    pass_dir = experiment("pass", True)
+    rc, verdict, pass_launches = run("PASS", pass_dir)
+    err = abs(verdict["best_cider"] - target) / target
+    if rc != 0 or verdict["passed"] is not True or err > 1e-9:
+        raise AssertionError(f"{tag} PASS: exit {rc}, best CIDEr "
+                             f"{verdict['best_cider']!r} against the "
+                             f"overfit gate's {target!r} ({err:.3g} apart)")
+    fail_dir = experiment("fail", False)
+    rc, verdict, fail_launches = run("FAIL", fail_dir)
+    last = f"model_compact-{GATE_XE_STEPS}"
+    differ = read_captions(fail_dir)[last] != read_captions(pass_dir)[last]
+    if rc != 1 or verdict["passed"] is not False or not differ:
+        raise AssertionError(f"{tag} FAIL: exit {rc}, verdict {verdict}, "
+                             f"captions differ from the PASS leg's: "
+                             f"{differ}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            parity_gate.main(argv(pass_dir))
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    if not refused or "PTB jar required" not in refused:
+        raise AssertionError(f"{tag}: without --allow_ptb_fallback the "
+                             f"gate did not refuse: {refused!r}")
+    launches = [a + b for a, b in zip(pass_launches, fail_launches)]
+    print(f"{tag}: PASS at best CIDEr {target:.6f} ({gate['best']}, "
+          f"{err:.3g} relative from overfit-gate's), FAIL on the untrained "
+          f"weights (other captions), refusal without the fallback "
+          f"({refused.splitlines()[0][:80]}...); the phase in "
+          f"{time.perf_counter() - t_phase:.2f} s; launches "
+          f"{dict(zip(names, launches))}")
+    return launches
 
 
 class DecodeSteps:
@@ -2600,12 +2768,19 @@ def main():
     eval_agree_phase(ckpt_path)
 
     # the overfit gate: caption quality after training, at full width
-    gate, gate_parts = overfit_gate_phase(kernels)
+    gate, gate_parts, gate_run = overfit_gate_phase(kernels)
     for i, k in enumerate(kernels):
         records[k.__name__]["launches"] += gate[i]
         records[k.__name__]["gate_shape"]["launches"] = gate[i]
         records[k.__name__]["overfit_gate_launches"] = {
             part: v[i] for part, v in gate_parts.items()}
+
+    # the port's parity gate on the overfit gate's trained directory
+    parity = parity_gate_phase(kernels, gate_run, state)
+    for i, k in enumerate(kernels):
+        records[k.__name__]["launches"] += parity[i]
+        records[k.__name__]["gate_shape"]["launches"] += parity[i]
+        records[k.__name__]["parity_gate_launches"] = parity[i]
 
     # the encoder zoo: every encoder serving, one of each module card vs
     # CPU, and ResNet-50's cnn_finetune stage

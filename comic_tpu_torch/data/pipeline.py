@@ -23,7 +23,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..configuration import Config
-from ..parallel.mesh import process_count, process_index
+from ..parallel.mesh import host_count, in_job, job_ranks, process_index
 from ..tokenization import (RadixCodec, Vocabulary, build_char_vocab,
                             encode_caption_tokens)
 from . import captions as cap_io
@@ -307,12 +307,15 @@ class TrainPipeline:
 
     In a torch.distributed job a training split is split by process (as
     comic_tpu's ``shard_by_process``): the records, the shuffle and the
-    bucket bounds stay global, the same on every rank: each step takes a GLOBAL batch of batch_size * W records,
-    whose padded width comes from the whole global batch, and each rank
-    loads only its contiguous block of it (rank r: rows [r * batch_size,
-    (r + 1) * batch_size)), the layout mesh.global_batch expects.
-    ``max_step`` and ``steps_per_epoch`` count global batches, the same on
-    every rank.
+    bucket bounds stay global, the same on every rank. Each step takes a
+    GLOBAL batch of batch_size records a host (comic_tpu's batch_size *
+    jax.process_count()), whose padded width comes from the whole global
+    batch, and splits it into equal blocks over the ranks that take part
+    (parallel.mesh.job_ranks, with the config's num_data_shards): rank r
+    loads only its contiguous block r, the layout mesh.global_batch
+    expects, and an idle rank an empty block. ``max_step`` and
+    ``steps_per_epoch`` count global batches, the same on every rank and
+    the same as comic_tpu's for the same job.
     """
 
     def __init__(self, config: Config, vocab: Vocabulary, split: str,
@@ -339,8 +342,12 @@ class TrainPipeline:
             max_encoded_len=max((len(r) for r in self._encoded), default=0))
         self.batch_size = (config.batch_size_train if self.is_training
                            else config.batch_size_eval)
-        self._n_proc, self._pid = ((process_count(), process_index())
-                                   if self.is_training else (1, 0))
+        # hosts of the job, ranks that take a block of a global batch, rank
+        self._hosts, self._parts, self._pid = 1, 1, 0
+        if self.is_training and in_job():
+            self._hosts, self._pid = host_count(), process_index()
+            self._parts, _ = job_ranks(
+                self._group, limit=int(config.get("num_data_shards") or 0))
         if loader is None:
             loader = _ImageLoaderPool(
                 num_workers, mode=host_resize_mode(config, self.is_training),
@@ -364,7 +371,7 @@ class TrainPipeline:
     @property
     def _group(self) -> int:
         """Records a step takes: the global batch."""
-        return self.batch_size * self._n_proc
+        return self.batch_size * self._hosts
 
     @property
     def steps_per_epoch(self) -> int:
@@ -398,10 +405,10 @@ class TrainPipeline:
         # the width of the whole global batch, before this rank's block
         width = self.bounds[max(pick_bucket(len(r), self.bounds)
                                 for r in rows)]
-        if self._n_proc > 1:
-            blk = len(idxs) // self._n_proc
-            idxs = idxs[self._pid * blk: (self._pid + 1) * blk]
-            rows = rows[self._pid * blk: (self._pid + 1) * blk]
+        blk = len(idxs) // self._parts
+        lo = min(self._pid, self._parts) * blk  # an idle rank: empty
+        hi = lo + blk if self._pid < self._parts else lo
+        idxs, rows = idxs[lo:hi], rows[lo:hi]
         paths = [cap_io.pjoin(self.config.dataset_dir, self.records[i][0])
                  for i in idxs]
         return self.loader.load(paths), pad_rows(rows, width)

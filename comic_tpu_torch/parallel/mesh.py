@@ -15,14 +15,25 @@ PyTorch in two ways:
   and sums the gradients with one coalesced ``all_reduce_grads`` after
   the backward pass.
 
+The unit of a job is the host, as in comic_tpu: a job of W ranks spans
+``host_count()`` hosts of ``ranks_per_host()`` ranks each, and a host's
+ranks stand in for one comic_tpu process's chips. An XE step's global
+batch is ``batch_size_train`` rows a host; on one host whose ranks do not
+divide a batch, ``make_mesh_for_batch`` keeps the first n ranks that do
+(the mesh's ``processes``) and the others idle, as comic_tpu shrinks its
+mesh to the chips that divide the batch; across hosts the batch must
+divide every rank.
+
 A batch that spans the job is held by each rank as a ``ProcessBlock``:
 its rows and their place in the global batch, which ``local_batch`` and
-``local_batch_start`` read back with comic_tpu's guards. Outside a job
-the helpers are the identity, as comic_tpu's are in one process.
+``local_batch_start`` read back with comic_tpu's guards. An idle rank
+holds an empty block placed at the end of the batch. Outside a job the
+helpers are the identity, as comic_tpu's are in one process.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,8 +47,9 @@ DATA_AXIS = "data"
 
 class Mesh(NamedTuple):
     """A 1-D data mesh: the ``devices`` this process drives (one block of
-    the batch each) in each of the job's ``processes`` (1 outside a job;
-    in a job each process drives one device)."""
+    the batch each) in each of the job's ``processes`` that take a block
+    (1 outside a job; in a job each process drives one device, and ranks
+    ``processes`` on, if any, idle)."""
 
     devices: Tuple[torch.device, ...]
     processes: int = 1
@@ -79,6 +91,32 @@ def process_index() -> int:
     return dist.get_rank() if in_job() else 0
 
 
+def ranks_per_host() -> int:
+    """The job's ranks on one host: torchrun's LOCAL_WORLD_SIZE where it is
+    set; else, under NCCL, the host's visible cards (at most the world: a
+    job smaller than one host's cards runs on one host); else 1 (gloo on
+    the CPU: each rank a host of its own). Outside a job 1."""
+    if not in_job():
+        return 1
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if local:
+        return int(local)
+    if torch.cuda.is_available() and dist.get_backend() == "nccl":
+        return min(torch.cuda.device_count(), process_count())
+    return 1
+
+
+def host_count() -> int:
+    """The job's hosts, comic_tpu's ``jax.process_count()``: the world over
+    ``ranks_per_host()``, which must divide it. Outside a job 1."""
+    world, local = process_count(), ranks_per_host()
+    if local < 1 or world % local:
+        raise ValueError(
+            f"a job of {world} ranks does not split into hosts of {local} "
+            "ranks (LOCAL_WORLD_SIZE, or the host's cards).")
+    return world // local
+
+
 def process_device() -> torch.device:
     """The device of this rank's collectives: its card under NCCL, the CPU
     under gloo."""
@@ -113,6 +151,56 @@ def make_mesh(num_devices: Optional[int] = None,
     return Mesh(tuple(torch.device(d) for d in devices))
 
 
+def _fit_batches(n: int, batch_sizes: Sequence[int], limit: int
+                 ) -> Tuple[int, int]:
+    """(the largest count <= ``n``, capped by ``limit`` > 0, that divides
+    every batch size; the capped count)."""
+    if limit and limit > 0:
+        n = min(n, int(limit))
+    capped = n
+    while n > 1 and any(b % n for b in batch_sizes):
+        n -= 1
+    return n, capped
+
+
+def job_ranks(*batch_sizes: int, limit: int = 0) -> Tuple[int, int]:
+    """(the job's ranks that take a block of every batch, the ranks that
+    could): comic_tpu's mesh rule with a host's ranks in the place of its
+    chips. On one host the first n ranks work, n the largest count up to
+    the world (and ``limit`` > 0) that divides every batch size; across
+    hosts every rank works, and a global batch that does not divide them,
+    or a ``limit`` that would leave some out, raises. Outside a job
+    (1, 1)."""
+    if not in_job():
+        return 1, 1
+    world, hosts = process_count(), host_count()
+    if hosts > 1:
+        # a shrunk mesh would leave whole hosts out: fail loudly instead
+        bad = [b for b in batch_sizes if b % world]
+        if bad:
+            raise ValueError(
+                f"multi-process mesh: global batch size(s) {bad} must "
+                f"divide the {world} global devices.")
+        if limit and 0 < limit < world:
+            raise ValueError(
+                "num_data_shards cannot shrink a multi-process mesh "
+                f"({limit} < {world} devices spanning {hosts} processes).")
+        return world, world
+    return _fit_batches(world, batch_sizes, limit)
+
+
+def _warn_idle(n: int, capped: int, batch_sizes: Sequence[int]) -> None:
+    # every dropped device is idle silicon: say so loudly
+    idle = capped - n
+    hints = sorted({max(round(b / capped), 1) * capped for b in batch_sizes})
+    print(
+        f"WARNING: batch size(s) {sorted(set(batch_sizes))} are not "
+        f"divisible by {capped} devices; using a {n}-device mesh "
+        f"({idle} device{'s' if idle != 1 else ''} IDLE). Choose a "
+        f"batch divisible by {capped} (nearby: {hints}) to use the "
+        "full slice.")
+
+
 def make_mesh_for_batch(*batch_sizes: int, limit: int = 0,
                         devices: Optional[Sequence[torch.device]] = None
                         ) -> Mesh:
@@ -121,41 +209,28 @@ def make_mesh_for_batch(*batch_sizes: int, limit: int = 0,
     (config.num_data_shards; 0 = every divisible device). ``devices``:
     the candidates outside a job (default: every visible card).
 
-    In a job the mesh spans every process: a global batch that does not
-    divide the processes raises, and so does a ``limit`` that would leave
-    processes out."""
+    In a job the devices are the ranks (``job_ranks``): on one host the
+    mesh keeps the first ranks that divide every batch and the rest idle,
+    with the same warning (printed by rank 0); across hosts it spans every
+    rank, and a global batch that does not divide them raises, as does a
+    ``limit`` that would leave ranks out."""
     if in_job():
-        n_avail = process_count()
-        bad = [b for b in batch_sizes if b % n_avail]
-        if bad:
-            raise ValueError(
-                f"multi-process mesh: global batch size(s) {bad} must "
-                f"divide the {n_avail} processes.")
-        if limit and 0 < limit < n_avail:
-            raise ValueError(
-                "num_data_shards cannot shrink a multi-process mesh "
-                f"({limit} < {n_avail} processes).")
-        return make_mesh()
+        n, capped = job_ranks(*batch_sizes, limit=limit)
+        if n < capped and process_index() == 0:
+            _warn_idle(n, capped, batch_sizes)
+        return Mesh((process_device(),), n)
     if devices is None:
         devices = available_devices()
-    n = len(devices)
-    if limit and limit > 0:
-        n = min(n, int(limit))
-    capped = n
-    while n > 1 and any(b % n for b in batch_sizes):
-        n -= 1
+    n, capped = _fit_batches(len(devices), batch_sizes, limit)
     if n < capped:
-        # every dropped device is idle silicon: say so loudly
-        idle = capped - n
-        hints = sorted({max(round(b / capped), 1) * capped
-                        for b in batch_sizes})
-        print(
-            f"WARNING: batch size(s) {sorted(set(batch_sizes))} are not "
-            f"divisible by {capped} devices; using a {n}-device mesh "
-            f"({idle} device{'s' if idle != 1 else ''} IDLE). Choose a "
-            f"batch divisible by {capped} (nearby: {hints}) to use the "
-            "full slice.")
+        _warn_idle(n, capped, batch_sizes)
     return make_mesh(n, devices)
+
+
+def takes_part(mesh: Optional[Mesh]) -> bool:
+    """Whether this rank takes a block of the batch on ``mesh`` (None:
+    every rank does)."""
+    return mesh is None or process_index() < mesh.processes
 
 
 def shard_batch(mesh: Mesh, x) -> List[torch.Tensor]:
@@ -286,12 +361,15 @@ def start_host_fetch(*arrays: torch.Tensor) -> List[HostCopy]:
 class ProcessBlock(NamedTuple):
     """This process's contiguous block of a batch that spans the job: its
     rows ``data`` (tensor or numpy) are rows [start, start + n) of a global
-    batch of ``size`` rows along ``axis``."""
+    batch of ``size`` rows along ``axis``, split into equal blocks over the
+    first ``parts`` ranks (None: every rank). An idle rank's block is empty
+    and starts at ``size``."""
 
     data: Any
     start: int
     size: int
     axis: int = 0
+    parts: Optional[int] = None
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -300,9 +378,25 @@ class ProcessBlock(NamedTuple):
         shape[self.axis] = self.size
         return tuple(shape)
 
+    @property
+    def idle(self) -> bool:
+        """Whether this rank takes no rows of the batch."""
+        return self.data.shape[self.axis] == 0 and self.start == self.size
+
+    def like(self, data, axis: int = 0, scale: int = 1) -> "ProcessBlock":
+        """``data``, this block's rows along ``axis`` (``scale`` rows a row:
+        e.g. the hypotheses of its images), placed as this block is."""
+        return ProcessBlock(data, self.start * scale, self.size * scale,
+                            axis, self.parts)
+
 
 def _numpy(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def block_count(mesh: Optional[Mesh]) -> int:
+    """The ranks that take a block on ``mesh`` (None: every rank)."""
+    return process_count() if mesh is None else mesh.processes
 
 
 def local_batch(x, axis: int = 0) -> np.ndarray:
@@ -313,17 +407,20 @@ def local_batch(x, axis: int = 0) -> np.ndarray:
     Raises instead of returning duplicated or misplaced rows where ``x``
     is not a disjoint block of the job's batch: a plain array in a job
     (every rank holds all rows: replicated), or a block off the ranks'
-    block boundaries."""
+    block boundaries. An idle rank's empty block is returned as it is."""
     if process_count() == 1:
         return _numpy(x.data if isinstance(x, ProcessBlock) else x)
     if not isinstance(x, ProcessBlock):
         x = ProcessBlock(x, 0, x.shape[axis], axis)
+    if x.idle:
+        return _numpy(x.data)
+    parts = process_count() if x.parts is None else x.parts
     rows = x.data.shape[axis]
-    expect = x.size // process_count()
+    expect = x.size // parts
     if rows != expect:
         raise ValueError(
             f"local_batch: process holds {rows} of {x.size} rows along "
-            f"axis {axis}, expected a disjoint 1/{process_count()} block of "
+            f"axis {axis}, expected a disjoint 1/{parts} block of "
             f"{expect}; the array is probably replicated — feed it through "
             "global_batch or feed_global.")
     if x.start % expect:
@@ -339,31 +436,39 @@ def local_batch_start(x, axis: int = 0) -> int:
     return int(x.start) if isinstance(x, ProcessBlock) else 0
 
 
-def global_batch(mesh: Mesh, x_local, axis: int = 0):
+def global_batch(mesh: Optional[Mesh], x_local, axis: int = 0):
     """Inverse of local_batch: this process's rows along ``axis`` as its
-    block of the job's batch (rank r holds block r). The identity in one
-    process."""
+    block of the job's batch (rank r holds block r of the ranks that take
+    part on ``mesh``; None: every rank). The identity in one process. An
+    idle rank has no block to place: it raises."""
     if process_count() == 1:
         return x_local
+    parts, rank = block_count(mesh), process_index()
+    if rank >= parts:
+        raise ValueError(
+            f"global_batch: rank {rank} takes no block of a batch split "
+            f"over {parts} ranks.")
     n = x_local.shape[axis]
-    return ProcessBlock(x_local, process_index() * n, n * process_count(),
-                        axis)
+    return ProcessBlock(x_local, rank * n, n * parts, axis, parts)
 
 
-def feed_global(mesh: Mesh, x, axis: int = 0):
+def feed_global(mesh: Optional[Mesh], x, axis: int = 0):
     """The full batch, the same on every process (e.g. an eval or SCST
     pipeline that is not split), -> this process's contiguous block of it,
-    placed in the job's batch. The identity in one process."""
-    n = process_count()
-    if n == 1:
+    placed in the job's batch: the batch splits over the ranks that take
+    part on ``mesh`` (None: every rank), and an idle rank takes an empty
+    block. The identity in one process."""
+    if process_count() == 1:
         return x
+    parts, rank = block_count(mesh), process_index()
     size = x.shape[axis]
-    if size % n:
+    if size % parts:
         raise ValueError(
             f"feed_global: batch axis {axis} of size {size} does not "
-            f"divide across {n} processes.")
-    blk = size // n
+            f"divide across {parts} processes.")
+    blk = size // parts
+    lo = min(rank * blk, size)
+    hi = lo + blk if rank < parts else size
     sl = [slice(None)] * x.ndim
-    pid = process_index()
-    sl[axis] = slice(pid * blk, (pid + 1) * blk)
-    return global_batch(mesh, x[tuple(sl)], axis=axis)
+    sl[axis] = slice(lo, hi)
+    return ProcessBlock(x[tuple(sl)], lo, size, axis, parts)

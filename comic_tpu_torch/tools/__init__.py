@@ -1,1 +1,2 @@
-"""Measurement scripts for the port's kernels (run on the card)."""
+"""The port's tools: the reference-parity gate (parity_gate) and the
+kernels' phase timer (kernel_phases, run on the card)."""

@@ -36,17 +36,20 @@ decoders run only to the batch's longest hypothesis
 the losses are the same.
 
 Data parallelism (parallel/): in a torch.distributed job the global batch
-is ``batch_size_train`` itself. The SCST pipeline is not split: every rank
-loads the whole batch and its references, takes its contiguous block of
-images (``feed_global``) for the rollout, scores its own block against
-its slice of the references (``host_score_shard``) and runs the
-reward-weighted step on its hypotheses. As in the XE step (training/xe.py)
-the ranks agree on the global longest hypothesis, each adds its share of
-the global loss, rank 0 alone adds the L2 term, the draws are taken at
-the global shape, and the gradients are summed by one coalesced
-all_reduce before the optimizer's clip. The score metrics (reward,
-score_sample, score_greedy) are each rank's own block's, as comic_tpu
-logs each host's.
+is ``batch_size_train`` itself, as in comic_tpu. The SCST pipeline is not
+split: every rank loads the whole batch and its references, takes its
+contiguous block of images (``feed_global``) for the rollout, scores its
+own block against its slice of the references (``host_score_shard``) and
+runs the reward-weighted step on its hypotheses. On one host whose ranks
+do not divide the batch (batch 10 on 8 ranks) the mesh keeps the ranks
+that do (5) and warns, as comic_tpu's does; the others take empty blocks,
+decode and score nothing, and add zeros to the step's collectives. As in
+the XE step (training/xe.py) the ranks agree on the global longest
+hypothesis, each adds its share of the global loss, rank 0 alone adds the
+L2 term, the draws are taken at the global shape, and the gradients are
+summed by one coalesced all_reduce before the optimizer's clip. The
+score metrics (reward, score_sample, score_greedy) are each rank's own
+block's, as comic_tpu logs each host's.
 """
 
 from __future__ import annotations
@@ -71,10 +74,11 @@ from ..models.captioner import (ModelSpec, attention_map_loss,
                                 process_captions, sequence_loss)
 from ..models.decoder import teacher_forced
 from ..models.encoders import encode_images
-from ..parallel.mesh import (Mesh, all_reduce_grads, barrier, feed_global,
-                             global_batch, local_batch, local_batch_start,
-                             make_mesh_for_batch, process_count,
-                             process_index, replicate)
+from ..parallel.mesh import (Mesh, ProcessBlock, all_reduce_grads, barrier,
+                             block_count, feed_global, local_batch,
+                             local_batch_start, make_mesh_for_batch,
+                             process_count, process_index, replicate,
+                             takes_part)
 from ..tokenization import (RadixCodec, Vocabulary,
                             caption_strings_to_batched_ids, ids_to_captions)
 from ..utils.summaries import SummaryWriter
@@ -109,7 +113,9 @@ def make_rollout(spec: ModelSpec, config: Config, vocab: Vocabulary,
     [im0_b0..imN_b0, im0_b1, ...]. ``generator`` (on ``device``) draws the
     augment. In a job ``images_u8`` is the rank's ProcessBlock of the
     global batch (``feed_global``), the augment is drawn for the global
-    batch, and the ids come back as the rank's blocks of the global ids."""
+    batch, and the ids come back as the rank's blocks of the global ids;
+    an idle rank's empty block decodes nothing (empty ids, no encoder
+    outputs)."""
     device = resolve_device(device)
     h, w = config.cnn_input_size
     beam = int(config.scst_beam_size)
@@ -119,9 +125,16 @@ def make_rollout(spec: ModelSpec, config: Config, vocab: Vocabulary,
 
     @torch.no_grad()
     def rollout(params, images_u8, generator: Optional[torch.Generator] = None):
+        block = images_u8 if isinstance(images_u8, ProcessBlock) else None
         images_u8 = local_batch(images_u8)
-        draws = (_block_augment(generator, images_u8, h, w) if augment
-                 else None)
+        if block is not None and block.idle:
+            return (block.like(torch.zeros((0, 0), dtype=torch.int32)),
+                    block.like(torch.zeros((beam, 0, 0), dtype=torch.int32),
+                               axis=1), None, None)
+        parts = (block.parts if block is not None and block.parts
+                 else process_count())
+        draws = (_block_augment(generator, images_u8, h, w, parts)
+                 if augment else None)
         images = preprocess(images_u8, h, w, device, training=augment,
                             draws=draws)
         im_embed, fmaps = encode_images(
@@ -139,24 +152,29 @@ def make_rollout(spec: ModelSpec, config: Config, vocab: Vocabulary,
             params["decoder"], spec, im_embed, memory, beam_size=beam,
             max_steps=steps, length_penalty=0.0, collect_alignments=False,
             early_exit=True)
-        return (global_batch(None, greedy.ids),
-                global_batch(None, all_beams["ids"], axis=1), im_embed, fmaps)
+        if block is None:  # one process
+            return greedy.ids, all_beams["ids"], im_embed, fmaps
+        return (block.like(greedy.ids),
+                block.like(all_beams["ids"], axis=1), im_embed, fmaps)
 
     return rollout
 
 
 def make_scst_train_step(spec: ModelSpec, config: Config,
-                         device: DeviceLike = None) -> Callable:
+                         device: DeviceLike = None,
+                         mesh: Optional[Mesh] = None) -> Callable:
     """(state, im_embed, fmaps, hypo_ids, rewards, generator) -> (state,
     metrics of 0-d tensors). ``im_embed``/``fmaps`` are per image (from the
     rollout) and are repeated on the device to the hypothesis rows;
     ``hypo_ids`` (B*K, W) and ``rewards`` (B*K,) are IMAGE-major (row i*K +
     k = image i, hypothesis k). ``generator`` (on ``device``) draws the
     dropout. Built inside a torch.distributed job, the step takes the
-    rank's hypotheses and rewards (arrays or ProcessBlocks) and its
-    metrics are the global batch's (module docstring)."""
+    rank's hypotheses and rewards (arrays or ProcessBlocks), split over the
+    ranks that take part on ``mesh`` (None: every rank), and its metrics
+    are the global batch's (module docstring)."""
     device = resolve_device(device)
-    world, rank = process_count(), process_index()
+    parts = block_count(mesh)
+    rank, works = process_index(), takes_part(mesh)
     beam = int(config.scst_beam_size)
     map_scale = float(config.rnn_map_loss_scale)
     l2_decay = float(config.l2_decay)
@@ -166,29 +184,33 @@ def make_scst_train_step(spec: ModelSpec, config: Config,
         params, opt = state.params, state.optimizer
         hypo_ids, rewards = local_batch(hypo_ids), local_batch(rewards)
         caps, steps, _ = _trim_global(hypo_ids)
-        caps = torch.as_tensor(caps).to(device, non_blocking=True)
-        rewards = torch.as_tensor(np.asarray(rewards, np.float32)).to(device)
-        im_k = im_embed.repeat_interleave(beam, dim=0)
-        fm_k = fmaps.repeat_interleave(beam, dim=0)
-        inputs, targets, mask = process_captions(caps)
-        logits, alignments = teacher_forced(
-            params["decoder"], spec.decoder, inputs, im_k, fm_k,
-            training=True, dtype=spec.compute_dtype,
-            dropout=_block_dropout(spec.decoder, inputs, fm_k.shape[1],
-                                   generator))
-        per_example = sequence_loss(logits, targets, mask,
-                                    average_across_batch=False)
-        # this rank's shares of the global batch's losses (equal blocks:
-        # the global mean is the mean of the blocks' means)
-        xe = (per_example * rewards).mean() / world
-        map_loss = attention_map_loss(alignments, map_scale,
-                                      valid_steps=steps) / world
         reg = masked_l2_loss(params, opt.mask, l2_decay)
-        # the L2 term is the same on every rank: add it once
-        (xe + map_loss + (reg if rank == 0 else 0.0)).backward()
+        if works:
+            caps = torch.as_tensor(caps).to(device, non_blocking=True)
+            rewards = torch.as_tensor(
+                np.asarray(rewards, np.float32)).to(device)
+            im_k = im_embed.repeat_interleave(beam, dim=0)
+            fm_k = fmaps.repeat_interleave(beam, dim=0)
+            inputs, targets, mask = process_captions(caps)
+            logits, alignments = teacher_forced(
+                params["decoder"], spec.decoder, inputs, im_k, fm_k,
+                training=True, dtype=spec.compute_dtype,
+                dropout=_block_dropout(spec.decoder, inputs, fm_k.shape[1],
+                                       generator, parts))
+            per_example = sequence_loss(logits, targets, mask,
+                                        average_across_batch=False)
+            # this rank's shares of the global batch's losses (equal
+            # blocks: the global mean is the mean of the blocks' means)
+            xe = (per_example * rewards).mean() / parts
+            map_loss = attention_map_loss(alignments, map_scale,
+                                          valid_steps=steps) / parts
+            # the L2 term is the same on every rank: add it once
+            (xe + map_loss + (reg if rank == 0 else 0.0)).backward()
+            local = torch.stack([xe, map_loss]).detach()
+        else:  # an idle rank adds nothing to the sums
+            local = torch.zeros(2, device=device)
         xe, map_loss = all_reduce_grads(
-            [tree_get(params, p) for p in opt.paths],
-            torch.stack([xe, map_loss]).detach())
+            [tree_get(params, p) for p in opt.paths], local)
         total = xe + map_loss + reg
         opt.step(params)
         metrics = {"scst_loss": xe, "map_loss": map_loss, "reg": reg,
@@ -237,11 +259,18 @@ def host_score_shard(greedy_ids, beam_ids, refs, scorer: CaptionScorer,
     (``local_batch``) against ITS slice of the references (the pipeline is
     not split, so every rank holds the whole batch's refs and slices them
     by its block), and its rows go back as its block of the global batch
-    (``global_batch``): no caption crosses between ranks. In one process
-    the helpers are the identity."""
-    n_proc = process_count()
-    if n_proc > 1:
-        n_local = len(refs) // n_proc
+    (placed as its rollout block): no caption crosses between ranks. An
+    idle rank's empty block scores nothing and gives empty hypotheses and
+    no metrics. In one process the helpers are the identity."""
+    block = greedy_ids if isinstance(greedy_ids, ProcessBlock) else None
+    beam = int(config.scst_beam_size)
+    if block is not None and block.idle:
+        return (block.like(np.zeros((0, width), np.int32), scale=beam),
+                block.like(np.zeros(0, np.float32), scale=beam), {})
+    if process_count() > 1:
+        parts = (block.parts if block is not None and block.parts
+                 else process_count())
+        n_local = len(refs) // parts
         lo = process_index() * n_local
         # the refs slice assumes this rank's rows ARE the global block
         # [lo, lo + n_local); check it against the rollout's placement so
@@ -258,14 +287,13 @@ def host_score_shard(greedy_ids, beam_ids, refs, scorer: CaptionScorer,
     hypo_ids, rewards, score_metrics = score_and_encode(
         scorer, config, vocab, refs, local_batch(greedy_ids),
         local_batch(beam_ids, axis=1), width)
-    beam = int(config.scst_beam_size)
     batch = hypo_ids.shape[0] // beam
     hypo_ids = hypo_ids.reshape(beam, batch, -1).transpose(1, 0, 2) \
         .reshape(beam * batch, -1)
     rewards = rewards.reshape(beam, batch).T.reshape(-1)
-    if mesh is not None:
-        hypo_ids = global_batch(mesh, hypo_ids)
-        rewards = global_batch(mesh, rewards)
+    if mesh is not None and block is not None:
+        hypo_ids = block.like(hypo_ids, scale=beam)
+        rewards = block.like(rewards, scale=beam)
     return hypo_ids, rewards, score_metrics
 
 
@@ -360,7 +388,7 @@ def _train_scst(config: Config, spec: ModelSpec, vocab: Vocabulary, pipe,
         config.save(config.log_path)
 
     rollout = make_rollout(spec, config, vocab, device)
-    train_step = make_scst_train_step(spec, config, device)
+    train_step = make_scst_train_step(spec, config, device, mesh)
     width = hypo_width(config, vocab)
     writer = SummaryWriter(config.log_path, enabled=chief)
     saver = ckpt.make_saver(config.get("checkpoint_backend", "msgpack"))

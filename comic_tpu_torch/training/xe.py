@@ -11,17 +11,21 @@ the pad steps of the bucket width would be masked out of both losses
 stay off every step that needs a gradient (models/attention.py); the
 eval-perplexity pass runs under no_grad, where K2 takes the attention.
 
-Data parallelism (parallel/): in a torch.distributed job each rank runs
-the step on its block of the global batch (batch_size_train rows a rank)
-and the step equals the one-process step on the global batch. The ranks
-agree first on the global longest caption and the global count of target
-tokens (one all_gather); each scales its XE and attention-map terms to
-its share of the global batch's, rank 0 alone adds the L2 term, and the
-gradients are summed by one coalesced all_reduce before the optimizer's
-per-leaf clip. The augment and dropout are drawn at the global batch's
-shape and each rank takes its rows, so even with dropout on the W-rank
-step is the one-process step. Outside a job the same code runs with one
-rank: the share is 1 and the collectives are the identity. The CNN's
+Data parallelism (parallel/): in a torch.distributed job the global
+batch is batch_size_train rows a host, as in comic_tpu (batch_size_train
+times jax.process_count()); the ranks that take part on the job's mesh
+each run the step on their equal block of it, and the step equals the
+one-process step on the global batch. The ranks agree first on the global
+longest caption and the global count of target tokens (one all_gather);
+each scales its XE and attention-map terms to its share of the global
+batch's, rank 0 alone adds the L2 term, and the gradients are summed by
+one coalesced all_reduce before the optimizer's per-leaf clip. A rank
+that idles on a one-host mesh (make_mesh_for_batch) runs no forward pass:
+it adds zeros to the all_gather and the all_reduce and takes the same
+update. The augment and dropout are drawn at the global batch's shape and
+each rank takes its rows, so even with dropout on the W-rank step is the
+one-process step. Outside a job the same code runs with one rank: the
+share is 1 and the collectives are the identity. The CNN's
 BatchNorm runs in inference mode in every stage (moving statistics
 frozen, as in comic_tpu), so no statistics are synchronised.
 """
@@ -53,9 +57,10 @@ from ..models.decoder import DropoutMasks, draw_dropout_masks, teacher_forced
 from ..models.encoders import encode_images
 from ..models.layers import count_params
 from ..parallel.mesh import (Mesh, all_gather_ints, all_reduce_grads,
-                             all_reduce_sum, barrier, feed_global,
-                             make_mesh_for_batch, process_count,
-                             process_index, replicate)
+                             all_reduce_sum, barrier, block_count,
+                             feed_global, host_count, make_mesh_for_batch,
+                             process_count, process_index, replicate,
+                             takes_part)
 from ..params import jax_shape
 from ..tokenization import Vocabulary, build_char_vocab
 from ..utils.profiling import StepTracer
@@ -88,35 +93,38 @@ def _trim_global(captions: np.ndarray) -> Tuple[np.ndarray, int, float]:
     its share of the global batch's target tokens): n is the GLOBAL
     batch's longest caption in decode steps (comic_tpu's dyn_steps is a max
     over the global batch), so every rank runs the same steps. One
-    all_gather; outside a job ``_trim`` and a share of 1."""
+    all_gather (an idle rank's empty block adds zeros); outside a job
+    ``_trim`` and a share of 1."""
     caps = np.asarray(captions)
     valid = caps[:, 1:] != PAD_ID
     tokens = int(valid.sum())
-    gathered = all_gather_ints([int(valid.sum(axis=1).max()), tokens])
+    gathered = all_gather_ints([int(valid.sum(axis=1).max(initial=0)),
+                                tokens])
     n = int(gathered[:, 0].max())
     return caps[:, : n + 1], n, tokens / max(int(gathered[:, 1].sum()), 1)
 
 
 def _block_augment(generator: torch.Generator, images_u8, out_h: int,
-                   out_w: int):
-    """draw_augment's flips and crops for this rank's block of images,
-    drawn for the whole global batch (the block's rows of it), so the
-    ranks draw what one process draws for the global batch."""
+                   out_w: int, parts: int):
+    """draw_augment's flips and crops for this rank's block of images (one
+    of ``parts`` equal blocks), drawn for the whole global batch (the
+    block's rows of it), so the ranks draw what one process draws for the
+    global batch."""
     b, in_h, in_w = images_u8.shape[:3]
     check_crop(in_h, in_w, out_h, out_w)
-    draws = draw_augment(generator, b * process_count(), in_h, in_w,
-                         out_h, out_w)
+    draws = draw_augment(generator, b * parts, in_h, in_w, out_h, out_w)
     start = process_index() * b
     return tuple(d[start: start + b] for d in draws)
 
 
 def _block_dropout(cfg, inputs: torch.Tensor, positions: int,
-                   generator: torch.Generator) -> DropoutMasks:
-    """The train-time dropout masks of this rank's block of a decode,
-    drawn for the whole global batch as ``_block_augment`` draws."""
+                   generator: torch.Generator, parts: int) -> DropoutMasks:
+    """The train-time dropout masks of this rank's block of a decode (one
+    of ``parts``), drawn for the whole global batch as ``_block_augment``
+    draws."""
     b, steps = inputs.shape
-    masks = draw_dropout_masks(cfg, b * process_count(), steps, positions,
-                               generator, inputs.device)
+    masks = draw_dropout_masks(cfg, b * parts, steps, positions, generator,
+                               inputs.device)
     return masks.rows(process_index() * b, b)
 
 
@@ -129,14 +137,17 @@ def _scope_norms(tree: Params, prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(spec: ModelSpec, config: Config, image_size,
-                    device: DeviceLike = None) -> Callable:
+                    device: DeviceLike = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """The train step (state, images_u8, captions, generator) -> (state,
     metrics of 0-d tensors). ``generator`` (on ``device``) draws the
     augment and the dropout. Built inside a torch.distributed job, the
-    step takes the rank's block of the global batch and its metrics are
-    the global batch's (module docstring)."""
+    step takes the rank's block of the global batch, split over the ranks
+    that take part on ``mesh`` (None: every rank), and its metrics are the
+    global batch's (module docstring)."""
     device = resolve_device(device)
-    world, rank = process_count(), process_index()
+    parts = block_count(mesh)
+    rank, works = process_index(), takes_part(mesh)
     h, w = image_size
     augment = bool(config.cnn_input_augment)
     preprocess = preprocess_for(config.cnn_name)
@@ -149,30 +160,34 @@ def make_train_step(spec: ModelSpec, config: Config, image_size,
                    generator: Optional[torch.Generator] = None):
         params, opt = state.params, state.optimizer
         caps, steps, share = _trim_global(captions)
-        caps = torch.as_tensor(caps).to(device, non_blocking=True)
-        draws = (_block_augment(generator, images_u8, h, w) if augment
-                 else None)
-        images = preprocess(images_u8, h, w, device, training=augment,
-                            draws=draws)
-        im_embed, fmaps = encode_images(
-            params["encoder"], images, spec.cnn_name, spec.fm_endpoint,
-            legacy=spec.legacy, dtype=spec.compute_dtype)
-        inputs, targets, mask = process_captions(caps)
-        logits, alignments = teacher_forced(
-            params["decoder"], spec.decoder, inputs, im_embed, fmaps,
-            training=True, dtype=spec.compute_dtype,
-            dropout=_block_dropout(spec.decoder, inputs, fmaps.shape[1],
-                                   generator))
-        # this rank's shares of the global batch's losses (equal blocks)
-        log_ppl = sequence_loss(logits, targets, mask) * share
-        map_loss = attention_map_loss(alignments, map_scale,
-                                      valid_steps=steps) / world
         reg = masked_l2_loss(params, opt.mask, l2_decay)
-        # the L2 term is the same on every rank: add it once
-        (log_ppl + map_loss + (reg if rank == 0 else 0.0)).backward()
+        if works:
+            caps = torch.as_tensor(caps).to(device, non_blocking=True)
+            draws = (_block_augment(generator, images_u8, h, w, parts)
+                     if augment else None)
+            images = preprocess(images_u8, h, w, device, training=augment,
+                                draws=draws)
+            im_embed, fmaps = encode_images(
+                params["encoder"], images, spec.cnn_name, spec.fm_endpoint,
+                legacy=spec.legacy, dtype=spec.compute_dtype)
+            inputs, targets, mask = process_captions(caps)
+            logits, alignments = teacher_forced(
+                params["decoder"], spec.decoder, inputs, im_embed, fmaps,
+                training=True, dtype=spec.compute_dtype,
+                dropout=_block_dropout(spec.decoder, inputs, fmaps.shape[1],
+                                       generator, parts))
+            # this rank's shares of the global batch's losses (equal
+            # blocks)
+            log_ppl = sequence_loss(logits, targets, mask) * share
+            map_loss = attention_map_loss(alignments, map_scale,
+                                          valid_steps=steps) / parts
+            # the L2 term is the same on every rank: add it once
+            (log_ppl + map_loss + (reg if rank == 0 else 0.0)).backward()
+            local = torch.stack([log_ppl, map_loss]).detach()
+        else:  # an idle rank adds nothing to the sums
+            local = torch.zeros(2, device=device)
         log_ppl, map_loss = all_reduce_grads(
-            [tree_get(params, p) for p in opt.paths],
-            torch.stack([log_ppl, map_loss]).detach())
+            [tree_get(params, p) for p in opt.paths], local)
         total = log_ppl + map_loss + reg
         metrics = {"log_ppl": log_ppl, "map_loss": map_loss, "reg": reg,
                    "total_loss": total}
@@ -221,11 +236,12 @@ def evaluate_perplexity(eval_step, params, pipeline,
 
     In a job the eval pipeline is not split: every rank loads the same
     batches. Where the mesh divides batch_size_eval, each rank scores its
-    block (feed_global) and one all_reduce at the end sums every batch's
-    token losses and token counts; otherwise every rank scores the whole
-    batch (comic_tpu's replicated fallback, xe.py:240-270). Either way the
-    result is the global mean."""
-    if (mesh is None or mesh.processes == 1
+    block (feed_global; an idle rank's block is empty and adds zeros) and
+    one all_reduce at the end sums every batch's token losses and token
+    counts; otherwise every rank scores the whole batch (comic_tpu's
+    replicated fallback, xe.py:240-270). Either way the result is the
+    global mean."""
+    if (mesh is None or process_count() == 1
             or pipeline.batch_size % mesh.size):
         losses = [eval_step(params, images, caps)
                   for images, caps in pipeline.epoch()]
@@ -234,16 +250,17 @@ def evaluate_perplexity(eval_step, params, pipeline,
         mean = torch.stack(losses).mean().item()
         return float(np.exp(np.float32(mean)))
     sums, counts = [], []
+    device = next(t for _, t in tree_items(params)).device
     for images, caps in pipeline.epoch():
         caps = feed_global(mesh, caps).data
         count = float((caps[:, 1:] != PAD_ID).sum())
         sums.append(eval_step(params, feed_global(mesh, images).data, caps)
-                    * count)
+                    * count if len(caps) else torch.zeros((), device=device))
         counts.append(count)
     if not sums:
         return float("nan")
     totals = all_reduce_sum(torch.stack([
-        torch.stack(sums), torch.tensor(counts, device=sums[0].device)]))
+        torch.stack(sums), torch.tensor(counts, device=device)]))
     mean = (totals[0] / totals[1]).mean().item()
     return float(np.exp(np.float32(mean)))
 
@@ -336,11 +353,13 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
         exclude_scopes=config.checkpoint_exclude_scopes, optimizer=optimizer)
     print(f"INFO: restore mode = {mode}, start step = {start_step}")
 
-    # in a job one step takes batch_size_train rows from EACH rank, and
-    # every rank starts from rank 0's parameters and optimizer moments
+    # in a job one step takes batch_size_train rows from EACH host (split
+    # over the host's ranks that divide it), and every rank starts from
+    # rank 0's parameters and optimizer moments
+    global_rows = config.batch_size_train * host_count()
     mesh = make_mesh_for_batch(
-        config.batch_size_train * process_count(),
-        limit=int(config.get("num_data_shards") or 0), devices=[device])
+        global_rows, limit=int(config.get("num_data_shards") or 0),
+        devices=[device])
     replicate(mesh, [params, optimizer.moments])
     set_trainable(params, optimizer.mask)
 
@@ -353,7 +372,7 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
           f"total {count_params(params):,d}")
 
     image_size = tuple(config.cnn_input_size)
-    train_step = make_train_step(spec, config, image_size, device)
+    train_step = make_train_step(spec, config, image_size, device, mesh)
     eval_step = make_eval_step(spec, config, image_size, device)
     # train_steps_per_call K: comic_tpu runs K steps in one dispatch (a
     # scan, bit-equal to K single steps) and logs/saves after the K; the
@@ -383,7 +402,7 @@ def _train(config: Config, spec: ModelSpec, train_pipe, eval_pipe,
                                      device)
                     logged_image = True
                 state, metrics = train_step(state, images, caps, generator)
-                n_since += images.shape[0] * mesh.processes  # global rows
+                n_since += global_rows
             step = state.step
             if (step // log_every) != (prev_step // log_every) \
                     or step == max_step:

@@ -73,6 +73,10 @@ PARALLEL_MODULES = {"comic_tpu_torch.parallel",
                     "comic_tpu_torch.parallel.mesh",
                     "comic_tpu_torch.parallel.distributed"}
 
+# the port's tools: the parity gate and the kernels' phase timer
+TOOLS_MODULES = {"comic_tpu_torch.tools.parity_gate",
+                 "comic_tpu_torch.tools.kernel_phases"}
+
 # libraries that only the functions needing them import
 OPTIONAL_LIBRARIES = ("tensorflow", "tensorstore", "h5py", "PIL", "cv2")
 
@@ -94,6 +98,7 @@ def test_port_imports_no_jax_and_no_comic_tpu():
     assert STANDALONE_MODULES <= names, STANDALONE_MODULES - names
     assert ZOO_MODULES <= names, ZOO_MODULES - names
     assert PARALLEL_MODULES <= names, PARALLEL_MODULES - names
+    assert TOOLS_MODULES <= names, TOOLS_MODULES - names
     assert bad.strip() == "[]"
     # importing every module pulls in none of the optional libraries
     assert lazy.strip() == "[]"
@@ -124,6 +129,12 @@ def test_training_cli_runs_without_jax():
 def test_infer_cli_runs_without_jax():
     out = _help_without_jax("infer")
     assert "--infer_checkpoints_dir" in out and "--require_ptb_jar" in out
+
+
+def test_parity_gate_runs_without_jax():
+    out = _help_without_jax("parity_gate", package="tools")
+    assert "--target_cider" in out and "--allow_ptb_fallback" in out
+    assert "--device" in out
 
 
 @pytest.mark.parametrize("cli,flags", [

@@ -14,9 +14,20 @@ step at the global batch to the same tolerances on every leaf, the CNN's
 included (the draws are taken at the global shape). The eval perplexity is
 the global mean, split or replicated, and the TrainPipeline's rank blocks
 concatenate to the one-process global batches.
+
+A second job declares its two ranks ONE host (LOCAL_WORLD_SIZE=2), the
+unit of a comic_tpu job: train_fn's XE step at batch_size_train 4 trains
+the host's 4 rows (2 a rank), as comic_tpu's one process over two chips
+does, and at batch 3 rank 0 trains all 3 while rank 1 idles with
+comic_tpu's IDLE warning; the pipeline's max_step and steps_per_epoch are
+comic_tpu's; an SCST step at batch 3 on that mesh gives comic_tpu's ids,
+rewards and parameters. Same tolerances.
 """
 
+import contextlib
+import io
 import json
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -26,10 +37,11 @@ import torch
 
 import torch_multiprocess_worker as worker
 from comic_tpu.configuration import Config as JConfig
+from comic_tpu.data import pipeline as jpipe
 from comic_tpu.evaluation.ngrams import build_idf_cache, save_idf_cache
 from comic_tpu.evaluation.scorers import CaptionScorer as JScorer
 from comic_tpu.models import captioner as jcap
-from comic_tpu.parallel.mesh import make_mesh, replicate
+from comic_tpu.parallel.mesh import make_mesh, make_mesh_for_batch, replicate
 from comic_tpu.tokenization import Vocabulary as JVocabulary
 from comic_tpu.training import scst as jscst
 from comic_tpu.training.optimizer import build_optimizer
@@ -43,6 +55,7 @@ from comic_tpu_torch.models import captioner as tcap
 from comic_tpu_torch.tokenization import Vocabulary
 from comic_tpu_torch.training import optimizer as topt
 from comic_tpu_torch.training import xe as txe
+from comic_tpu_torch.training.checkpoints import save_compact
 from comic_tpu_torch.training.schedule import cosine_schedule
 
 torch.set_num_threads(1)
@@ -68,6 +81,9 @@ SPECS = {
     "scst": BASE,
     "pipeline": dict(BASE, batch_size_train=2, max_epoch=1),
 }
+# the one-host job's configuration (train_fn reads the vocabulary from it)
+HOST = dict(BASE, batch_size_eval=4, wtoi=WTOI, itow={
+    str(k): w for k, w in Vocabulary(dict(WTOI)).itow.items()})
 LOSS_TOL = dict(rtol=1e-5)
 PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
 
@@ -80,12 +96,9 @@ def _records(n, first=0):
             for i in range(n)]
 
 
-@pytest.fixture(scope="module")
-def job(tmp_path_factory):
-    """The inputs, the 2-process job's results (one per rank) and the
-    one-process references of both packages, computed while the job
-    runs."""
-    work = tmp_path_factory.mktemp("dp_job")
+def _inputs(work):
+    """The job's parameters, images, captions and references, also written
+    into ``work`` for the workers."""
     tspec = tcap.build_model_spec(Config(**BASE), Vocabulary(dict(WTOI)))
     tree = bridge.to_jax_tree(tcap.init_params(
         tspec, torch.Generator().manual_seed(0), device="cpu"))
@@ -108,27 +121,42 @@ def job(tmp_path_factory):
     np.savez(work / "inputs.npz", images=images, caps=caps)
     with open(work / "spec.json", "w") as f:
         json.dump({"wtoi": WTOI, "refs": refs, "records": _records(12),
-                   "valid": _records(12, 100), **SPECS}, f)
+                   "valid": _records(12, 100), "host": HOST, **SPECS}, f)
+    return tree, images, caps, refs
 
-    import threading
 
+def _run_with(mode, work, references, env=None):
+    """The job's ranks' results and ``references()``, computed while the
+    job runs."""
     results = {}
 
     def run():
         try:
-            results["ranks"] = worker.run_job("steps", work, timeout=150)
+            results["ranks"] = worker.run_job(mode, work, timeout=150,
+                                              env=env)
         except BaseException as e:  # re-raised below
             results["error"] = e
 
     thread = threading.Thread(target=run)
     thread.start()
     try:
-        ref = _references(tree, images, caps, refs, str(work / "idf.p"))
+        ref = references()
     finally:
         thread.join()
     if "error" in results:
         raise results["error"]
     return results["ranks"], ref
+
+
+@pytest.fixture(scope="module")
+def job(tmp_path_factory):
+    """The inputs, the 2-process job's results (one per rank) and the
+    one-process references of both packages, computed while the job
+    runs."""
+    work = tmp_path_factory.mktemp("dp_job")
+    tree, images, caps, refs = _inputs(work)
+    return _run_with("steps", work, lambda: _references(
+        tree, images, caps, refs, str(work / "idf.p")))
 
 
 def _jax_state(mesh, tree, c):
@@ -298,3 +326,139 @@ def test_pipeline_blocks_concatenate_to_the_global_batches(job):
             [r[f"pipe/images/{i}"] for r in ranks]), images)
         np.testing.assert_array_equal(np.concatenate(
             [r[f"pipe/caps/{i}"] for r in ranks]), caps)
+
+
+# --- one host of two ranks (fault F1: a job's unit is the host) -------------
+
+def _host_references(tree, images, refs, idf):
+    """comic_tpu's one process on a host of two chips (make_mesh_for_batch
+    capped at 2): the XE step at the first global batch of 4 and of 3, its
+    pipeline's counts and its printed warning; the SCST rollout, scoring
+    and step at batch 3."""
+    out = {}
+    vocab, jvocab = Vocabulary(dict(WTOI)), JVocabulary(dict(WTOI))
+    for batch in (4, 3):
+        c = JConfig(**dict(HOST, batch_size_train=batch))
+        jp = jpipe.TrainPipeline(c, jvocab, "train", records=_records(12))
+        counts = (c.max_step, jp.steps_per_epoch)
+        jp.loader.close()
+        # the first global batch: the port's one-process pipeline, whose
+        # batches are comic_tpu's (test_torch_train_data.py)
+        tp = TrainPipeline(Config(**dict(HOST, batch_size_train=batch)),
+                           vocab, "train", records=_records(12),
+                           loader=worker._EvalImages(images))
+        batch_images, batch_caps = next(iter(tp))
+        tp.close()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            mesh = make_mesh_for_batch(batch, limit=2)
+        jspec = jcap.build_model_spec(c, jvocab)
+        opt, mask = build_optimizer(
+            tree, jcosine(c.lr_start, c.lr_end, 1), optimiser=c.optimiser,
+            adam_epsilon=c.adam_epsilon, freeze_scopes=c.freeze_scopes,
+            cnn_grad_multiplier=c.cnn_grad_multiplier,
+            clip_gradient_norm=c.clip_gradient_norm)
+        state = JTrainState(replicate(mesh, tree),
+                            replicate(mesh, opt.init(tree)),
+                            jnp.asarray(0, jnp.int32))
+        step = jmake_train_step(jspec, c, opt, mask, (64, 64), mesh=mesh)
+        state, m = step(state, batch_images, batch_caps,
+                        jax.random.PRNGKey(7))
+        out[f"xe{batch}"] = dict(
+            loss=[float(m["total_loss"]), float(m["map_loss"])],
+            params=jax.tree_util.tree_map(np.asarray, state.params),
+            counts=counts, devices=mesh.devices.size, log=log.getvalue())
+
+    c = JConfig(**dict(HOST, batch_size_train=3))
+    jspec = jcap.build_model_spec(c, jvocab)
+    with contextlib.redirect_stdout(io.StringIO()):
+        mesh = make_mesh_for_batch(3, limit=2)
+    state, opt, mask = _jax_state(mesh, tree, c)
+    greedy, beams, im_embed, fmaps = jscst.make_rollout(
+        jspec, c, jvocab, mesh=mesh)(state.params, images[:3],
+                                     jax.random.PRNGKey(3))
+    hypo, rewards, _ = jscst.host_score_shard(
+        greedy, beams, refs[:3], JScorer(idf, {"ciderD": 1.0}), c, jvocab,
+        jscst.hypo_width(c, jvocab), mesh=mesh)
+    state, m = jscst.make_scst_train_step(jspec, c, opt, mask, mesh=mesh)(
+        state, im_embed, fmaps, hypo, rewards, jax.random.PRNGKey(4))
+    out["scst3"] = dict(
+        ids=[np.asarray(x) for x in (greedy, beams, hypo)],
+        rewards=np.asarray(rewards),
+        loss=[float(m["total_loss"]), float(m["map_loss"])],
+        params=jax.tree_util.tree_map(np.asarray, state.params))
+    return out
+
+
+@pytest.fixture(scope="module")
+def host_job(tmp_path_factory):
+    """A 2-process job declared as one host of two ranks: the ranks'
+    results and comic_tpu's one-process references."""
+    work = tmp_path_factory.mktemp("host_job")
+    tree, images, _, refs = _inputs(work)
+    save_compact(str(work / "init"), 0, bridge.from_jax_tree(tree, "cpu"))
+    return _run_with("host", work, lambda: _host_references(
+        tree, images, refs, str(work / "idf.p")),
+        env={"LOCAL_WORLD_SIZE": "2"})
+
+
+@pytest.mark.parametrize("batch", [4, 3])
+def test_one_host_xe_step_trains_the_hosts_batch(host_job, batch):
+    """train_fn's step in a job of one host of two ranks equals comic_tpu's
+    step over a host of two chips at the global batch batch_size_train
+    (not batch_size_train a rank): at 4 each rank takes 2 rows, at 3 rank
+    0 takes every row and rank 1 none; every rank ends with comic_tpu's
+    parameters."""
+    ranks, ref = host_job
+    want = ref[f"xe{batch}"]
+    assert [int(r[f"xe{batch}/rows"]) for r in ranks] == (
+        [2, 2] if batch == 4 else [3, 0])
+    for r in ranks:
+        assert list(r["hosts"]) == [2, 1]  # ranks a host, hosts
+        np.testing.assert_allclose(r[f"xe{batch}/loss"], want["loss"],
+                                   **LOSS_TOL)
+        _params_close(_rank_params(r, f"xe{batch}"), want["params"])
+
+
+@pytest.mark.parametrize("batch", [4, 3])
+def test_one_host_pipeline_counts_comic_tpus_steps(host_job, batch):
+    """max_step and steps_per_epoch count the host's global batches, equal
+    to comic_tpu's for the same job."""
+    ranks, ref = host_job
+    for r in ranks:
+        assert tuple(r[f"xe{batch}/counts"]) == ref[f"xe{batch}"]["counts"]
+
+
+def test_one_host_idle_rank_is_warned_as_in_comic_tpu(host_job):
+    """Batch 3 on a host of two: comic_tpu uses one chip and prints its
+    IDLE warning; the port's rank 0 prints the same line, rank 1 idles
+    silently, and batch 4 warns nowhere."""
+    ranks, ref = host_job
+    assert (ref["xe4"]["devices"], ref["xe3"]["devices"]) == (2, 1)
+    warning = ref["xe3"]["log"].strip()
+    assert "1 device IDLE" in warning and "IDLE" not in ref["xe4"]["log"]
+    assert warning in str(ranks[0]["xe3/log"])
+    assert warning in str(ranks[0]["scst3/log"])
+    for r in ranks:
+        assert "IDLE" not in str(r["xe4/log"])
+    assert "IDLE" not in str(ranks[1]["xe3/log"])
+
+
+def test_one_host_scst_with_an_idle_rank_matches_comic_tpu(host_job):
+    """SCST at batch 3 on a host of two: rank 0's rollout ids and
+    hypotheses are comic_tpu's exactly and its rewards within rtol 1e-5;
+    rank 1's blocks are empty; both ranks' loss and parameters are
+    comic_tpu's."""
+    ranks, ref = host_job
+    want = ref["scst3"]
+    r0, r1 = ranks
+    for key, ids in zip(("greedy", "beams", "hypo"), want["ids"]):
+        np.testing.assert_array_equal(r0[f"scst3/{key}"], ids, err_msg=key)
+    np.testing.assert_allclose(r0["scst3/rewards"], want["rewards"],
+                               rtol=1e-5)
+    assert np.abs(want["rewards"]).max() > 1e-3
+    assert r1["scst3/greedy"].shape[0] == r1["scst3/hypo"].shape[0] == 0
+    assert r1["scst3/beams"].shape[1] == r1["scst3/rewards"].shape[0] == 0
+    for r in ranks:
+        np.testing.assert_allclose(r["scst3/loss"], want["loss"], **LOSS_TOL)
+        _params_close(_rank_params(r, "scst3"), want["params"])

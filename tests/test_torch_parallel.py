@@ -273,3 +273,107 @@ def test_serve_split_over_a_mesh_matches_comic_tpu(beam):
         ids, maps = serve(params, images)
         assert maps is None
         np.testing.assert_array_equal(ids.numpy(), want[0])
+
+
+# --- a job's unit is the host: ranks a host and the job mesh rule ------------
+
+@pytest.mark.parametrize("local, world, rph, hosts", [
+    (None, 4, 1, 4),  # gloo on the CPU: every rank a host of its own
+    ("2", 4, 2, 2),
+    ("4", 4, 4, 1),
+    ("8", 8, 8, 1),
+])
+def test_ranks_per_host_reads_local_world_size(monkeypatch, local, world,
+                                               rph, hosts):
+    _fake_job(monkeypatch, world)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    if local is not None:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local)
+    assert (pm.ranks_per_host(), pm.host_count()) == (rph, hosts)
+
+
+def test_ranks_per_host_on_cards_counts_the_hosts_cards(monkeypatch):
+    """Under NCCL without LOCAL_WORLD_SIZE a host holds its visible cards,
+    or the whole job where it is smaller; outside a job one host."""
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert (pm.ranks_per_host(), pm.host_count()) == (1, 1)
+    _fake_job(monkeypatch, 8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(pm.dist, "get_backend", lambda: "nccl")
+    assert (pm.ranks_per_host(), pm.host_count()) == (4, 2)
+    monkeypatch.setattr(pm, "process_count", lambda: 2)
+    assert (pm.ranks_per_host(), pm.host_count()) == (2, 1)
+
+
+def test_a_world_that_does_not_split_into_hosts_raises(monkeypatch):
+    _fake_job(monkeypatch, 6)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    with pytest.raises(ValueError, match="does not split into hosts of 4"):
+        pm.host_count()
+    with pytest.raises(ValueError, match="does not split into hosts"):
+        pm.make_mesh_for_batch(8)
+
+
+def _comic_tpu_mesh(monkeypatch, world, hosts, batches, limit):
+    """comic_tpu's make_mesh_for_batch with ``world`` chips over ``hosts``
+    processes -> (its device count, or the error it raises; what it
+    printed)."""
+    import contextlib
+    import io
+
+    import jax
+
+    from comic_tpu.parallel import mesh as jmesh
+
+    with monkeypatch.context() as m:
+        m.setattr(jax, "devices", lambda: list(range(world)))
+        m.setattr(jax, "process_count", lambda: hosts)
+        m.setattr(jmesh, "make_mesh",
+                  lambda n=None: world if n is None else n)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            try:
+                got = jmesh.make_mesh_for_batch(*batches, limit=limit)
+            except ValueError as e:
+                got = str(e)
+    return got, log.getvalue()
+
+
+def _port_mesh(monkeypatch, world, rph, batches, limit, rank=0):
+    import contextlib
+    import io
+
+    _fake_job(monkeypatch, world, rank)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(rph))
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        try:
+            got = pm.make_mesh_for_batch(*batches, limit=limit).processes
+        except ValueError as e:
+            got = str(e)
+    return got, log.getvalue()
+
+
+@pytest.mark.parametrize("world, rph, batches, limit", [
+    (8, 8, (10,), 0),  # SCST's batch 10 on one host of 8: 5 work
+    (8, 8, (32,), 0),
+    (8, 8, (32,), 4),
+    (8, 8, (32, 61), 0),
+    (2, 2, (3,), 0),
+    (2, 2, (4,), 0),
+    (4, 2, (8,), 0),  # two hosts: every rank
+    (4, 2, (6,), 0),  # two hosts: refused
+    (4, 2, (8,), 2),
+    (8, 4, (12,), 0),
+])
+def test_job_mesh_follows_comic_tpus_rule(monkeypatch, world, rph, batches,
+                                          limit):
+    """The job's mesh against comic_tpu's on the same counts, a host's
+    ranks in the place of its chips: on one host the same shrunk size and
+    the same IDLE line (on rank 0; the other ranks print nothing), across
+    hosts the same size or the same error."""
+    want = _comic_tpu_mesh(monkeypatch, world, world // rph, batches, limit)
+    assert _port_mesh(monkeypatch, world, rph, batches, limit) == want
+    got, log = _port_mesh(monkeypatch, world, rph, batches, limit, rank=1)
+    assert got == want[0] and log == ""

@@ -14,6 +14,13 @@ Modes:
              4), the eval perplexity split and replicated, an SCST rollout
              on the rank's image block, its host scoring and one SCST step,
              and the TrainPipeline's blocks of an epoch;
+  host       a job declared as ONE host of two ranks (LOCAL_WORLD_SIZE=2):
+             train_fn one XE step at batch_size_train 4 (both ranks work)
+             and 3 (rank 1 idles), each from the test's compact
+             checkpoint, recording the pipeline's max_step and
+             steps_per_epoch, each rank's block and parameters, and its
+             printed lines; then an SCST rollout, host scoring and step at
+             batch 3 on the same one-host mesh (rank 1 idles);
   train_cli  comic_tpu_torch.cli.train.main on the CPU (argv in workdir);
   infer_cli  comic_tpu_torch.cli.infer.main on the CPU: records the
              refusal of the multi-process sweep.
@@ -36,19 +43,20 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_job(mode, workdir, n=2, timeout=120):
+def run_job(mode, workdir, n=2, timeout=120, env=None):
     """Run ``mode`` in an n-process gloo job -> each rank's result (a dict
-    of arrays). Kills every process when one fails or the job outlives
-    ``timeout`` seconds, and raises with the failing rank's output."""
+    of arrays). ``env``: more environment variables of every rank. Kills
+    every process when one fails or the job outlives ``timeout`` seconds,
+    and raises with the failing rank's output."""
     port = _free_port()
     procs = []
     for rank in range(n):
-        env = dict(os.environ, COMIC_COORDINATOR=f"127.0.0.1:{port}",
-                   COMIC_NUM_PROCESSES=str(n), COMIC_PROCESS_ID=str(rank),
-                   PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
+        env_r = dict(os.environ, COMIC_COORDINATOR=f"127.0.0.1:{port}",
+                     COMIC_NUM_PROCESSES=str(n), COMIC_PROCESS_ID=str(rank),
+                     PYTHONPATH=_REPO, OMP_NUM_THREADS="1", **(env or {}))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), mode, str(workdir)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            env=env_r, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     outs = []
     try:
@@ -200,6 +208,113 @@ def _steps(workdir, rank, world):
     return out
 
 
+def _host(workdir):
+    import contextlib
+    import io
+
+    import torch
+
+    from comic_tpu_torch import params as bridge
+    from comic_tpu_torch.configuration import Config
+    from comic_tpu_torch.data.pipeline import TrainPipeline
+    from comic_tpu_torch.evaluation.scorers import CaptionScorer
+    from comic_tpu_torch.models.captioner import build_model_spec
+    from comic_tpu_torch.parallel import mesh as pm
+    from comic_tpu_torch.tokenization import Vocabulary
+    from comic_tpu_torch.training import optimizer as topt
+    from comic_tpu_torch.training import scst as tscst
+    from comic_tpu_torch.training import xe as txe
+    from comic_tpu_torch.training.schedule import cosine_schedule
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec_in = json.load(f)
+    images = np.load(os.path.join(workdir, "inputs.npz"))["images"]
+    vocab = Vocabulary(dict(spec_in["wtoi"]))
+    out = {"hosts": np.asarray([pm.ranks_per_host(), pm.host_count()])}
+
+    # the train step train_fn builds, wrapped to keep this rank's block and
+    # its state after the step
+    seen = {}
+    make_step = txe.make_train_step
+
+    def recording_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def recorded(state, images_u8, captions, generator=None):
+            seen["rows"] = len(captions)
+            seen["state"], metrics = step(state, images_u8, captions,
+                                          generator)
+            return seen["state"], metrics
+        return recorded
+
+    txe.make_train_step = recording_make_train_step
+    for batch in (4, 3):
+        tag = f"xe{batch}"
+        config = Config(**dict(spec_in["host"], batch_size_train=batch,
+                               log_path=os.path.join(workdir, tag),
+                               checkpoint_path=os.path.join(workdir,
+                                                            "init")))
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            train = TrainPipeline(
+                config, vocab, "train",
+                records=[tuple(r) for r in spec_in["records"]],
+                loader=_EvalImages(images))
+            out[f"{tag}/counts"] = np.asarray([config.max_step,
+                                               train.steps_per_epoch])
+            valid = TrainPipeline(
+                config, vocab, "valid",
+                records=[tuple(r) for r in spec_in["valid"]],
+                loader=_EvalImages(images))
+            metrics = txe.train_fn(config, max_steps_override=1,
+                                   train_pipe=train, eval_pipe=valid,
+                                   device="cpu")
+        train.close()
+        valid.close()
+        out[f"{tag}/log"] = np.asarray(log.getvalue())
+        out[f"{tag}/rows"] = np.asarray(seen["rows"])
+        out[f"{tag}/loss"] = np.asarray([metrics["total_loss"],
+                                         metrics["map_loss"]])
+        for k, v in flat_params(bridge.to_jax_tree(
+                seen["state"].params)).items():
+            out[f"{tag}/params/{k}"] = v
+    txe.make_train_step = make_step
+
+    # SCST at batch 3 on the one-host mesh: rank 0 takes every image
+    config = Config(**dict(spec_in["host"], batch_size_train=3))
+    spec = build_model_spec(config, vocab)
+    tp = bridge.from_jax_tree(_nested(dict(np.load(
+        os.path.join(workdir, "params.npz")))), "cpu")
+    opt = topt.Optimizer(tp, cosine_schedule(1e-3, 1e-4, 10),
+                         freeze_scopes=config.freeze_scopes,
+                         adam_epsilon=config.adam_epsilon)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        mesh = pm.make_mesh_for_batch(3)
+    out["scst3/log"] = np.asarray(log.getvalue())
+    pm.replicate(mesh, [tp, opt.moments])
+    topt.set_trainable(tp, opt.mask)
+    rollout = tscst.make_rollout(spec, config, vocab, "cpu")
+    greedy, beams, im_embed, fmaps = rollout(
+        tp, pm.feed_global(mesh, images[:3]))
+    scorer = CaptionScorer(os.path.join(workdir, "idf.p"), {"ciderD": 1.0})
+    hypo, rewards, _ = tscst.host_score_shard(
+        greedy, beams, spec_in["refs"][:3], scorer, config, vocab,
+        tscst.hypo_width(config, vocab), mesh)
+    out["scst3/greedy"] = pm.local_batch(greedy)
+    out["scst3/beams"] = pm.local_batch(beams, axis=1)
+    out["scst3/hypo"] = pm.local_batch(hypo)
+    out["scst3/rewards"] = pm.local_batch(rewards)
+    step = tscst.make_scst_train_step(spec, config, "cpu", mesh)
+    state, metrics = step(txe.TrainState(tp, opt, 0), im_embed, fmaps, hypo,
+                          rewards)
+    out["scst3/loss"] = np.asarray([float(metrics["total_loss"]),
+                                    float(metrics["map_loss"])])
+    for k, v in flat_params(bridge.to_jax_tree(state.params)).items():
+        out[f"scst3/params/{k}"] = v
+    return out
+
+
 class _EvalImages:
     """The eval split's images: record i is image i of the test's batch."""
 
@@ -243,11 +358,13 @@ def main(mode, workdir):
         maybe_initialize_distributed
 
     torch.set_num_threads(1)
-    if mode == "steps":  # the CLIs join the job themselves
+    if mode in ("steps", "host"):  # the CLIs join the job themselves
         assert maybe_initialize_distributed(device="cpu")
     try:
         if mode == "steps":
             out = _steps(workdir, dist.get_rank(), dist.get_world_size())
+        elif mode == "host":
+            out = _host(workdir)
         elif mode == "train_cli":
             out = _train_cli(workdir)
         else:
