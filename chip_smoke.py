@@ -123,14 +123,31 @@ Phases (any failure raises and exits non-zero):
      resnet_v1_50 at batch 32 (the VGG train augmentation on the card and
      the backward of slim's fixed-pad strided convs): finite losses, the
      checkpoints, 0 kernel launches in every train step, K2 in the eval
-     pass.
+     pass;
+ 24. bench: comic_tpu_torch.bench's legs at full width (COMIC-256, the
+     real 9,962-word vocabulary, the bench's weights), each leg timed as the
+     best of BENCH_ROUNDS rounds of BENCH_ITERS calls after one warm-up:
+     worst-case serving at batch 25; at 128 the worst case, the realistic
+     40-step point and the floor, in BENCH_TURNS rotating turns with each
+     leg's best kept; the cost model's
+     serve, the XE step, XE's best at batches 32 and 64, the SCST rollout
+     and train step, BENCH_LOOP_STEPS steps of the SCST loop with overlap
+     on and off, and tools/beam_sweep's beams 1, 2, 5 and 7 at batch 128.
+     Every time and rate finite and positive, every cost-model field
+     finite and not negative; K1 launches 60 times a worst-case call (the
+     EOS is unreachable), 40 a realistic call, 60 in the counted serve;
+     K2 60 times a beam-1 call; neither in an XE step; floor ms <
+     realistic ms < worst-case ms at batch 128.
 
 Phase 3 holds the kernels at the serving shapes, at K2's eval-perplexity
 batch, at the SCST rollout's shapes (K1 at batch 10, beam 7; K2 at 10
 rows for the greedy baseline), K1 at the COCO server split's batch of
 61, both at the overfit gate's batch of 5 (K1 at beam 3) and both at the
 serving batch at the zoo's other attention sizes, L=49 and L=144 (the
-COCO server, gate and zoo shapes also checked bitwise repeatable).
+COCO server, gate and zoo shapes also checked bitwise repeatable), and
+the bench's: K1 at B=64, 128 and 256 with K=3 and at B=128 with K=2, 5
+and 7 (tools/beam_sweep), K2 at R=128 (its beam 1), also checked bitwise
+repeatable.
 Phases 4 and 5 also time one steady batch
 and profile one more, phases 7 and 8 profile one more train step
 (torch.profiler; the per-kernel tables go to smoke_out/profile_*.txt).
@@ -219,6 +236,20 @@ ZOO_L = (49, 144)
 # zoo-agree: the card's attention memory against the CPU's, float32, TF32
 # off (cuDNN's and the CPU's convolutions sum in other orders)
 TOL_ZOO = 1e-4
+# the bench phase: comic_tpu_torch.bench's legs, each the best of
+# BENCH_ROUNDS rounds of BENCH_ITERS calls after one warm-up (the host-bound
+# serving loop varies by ~25% between runs; the best of 3 keeps the floor <
+# realistic < worst-case order of the batch-128 legs clear of it); its
+# serving batches, XE best's batches, the SCST loop's steps; and
+# tools/beam_sweep's beams at batch BENCH_B. The bench's serving batches
+# and beams are also phase 3's K1 and K2 shapes (BENCH_BATCHES at K=3,
+# BENCH_BEAMS at BENCH_B; beam 1 is K2 at R=BENCH_B)
+BENCH_ITERS, BENCH_ROUNDS, BENCH_LOOP_STEPS = 4, 3, 5
+# the batch-BENCH_B serving legs (worst case, realistic, floor) run this
+# many times in rotating order, each leg's best kept
+BENCH_TURNS = 3
+BENCH_SERVE_BATCHES, BENCH_XE_BATCHES = (25, 128), (32, 64)
+BENCH_B, BENCH_BATCHES, BENCH_BEAMS = 128, (64, 128, 256), (1, 2, 5, 7)
 # float32 operations per (query, position, channel) besides the tanh: K1
 # cross term 2, normalize 3, affine 2, v and head sum 2, context 2; K2
 # takes its statistics in two passes (6) instead of the cross term. Each
@@ -397,6 +428,17 @@ def check_kernels():
                     length),
                    ("fused_add_ln_attention", None, B, f"zoo_L{length}",
                     length)]
+    # the bench's serving batches at beam 3, and beam_sweep's beams at its
+    # batch: K1 with K beams, K2 for beam 1
+    shapes += [("grouped_add_ln_attention", K, rows, f"bench_b{rows}", L)
+               for rows in BENCH_BATCHES]
+    for beams in BENCH_BEAMS:
+        if beams == 1:
+            shapes.append(("fused_add_ln_attention", None, BENCH_B,
+                           f"bench_r{BENCH_B}", L))
+        else:
+            shapes.append(("grouped_add_ln_attention", beams, BENCH_B,
+                           f"bench_b{BENCH_B}_k{beams}", L))
     for name, beams, rows, tag, length in shapes:
         worst = 0.0
         for keys_dtype in (torch.float32, torch.bfloat16):
@@ -454,7 +496,8 @@ def check_kernels():
             if not (torch.isfinite(ctx).all() and torch.isfinite(align).all()):
                 raise AssertionError(f"{name} produced non-finite values")
             # the plans of new row counts and lengths
-            if tag in ("coco_shape", "gate_shape") or tag.startswith("zoo"):
+            if tag in ("coco_shape", "gate_shape") or tag.startswith(
+                    ("zoo", "bench")):
                 again = kern()
                 if not (torch.equal(again[0], ctx)
                         and torch.equal(again[1], align)):
@@ -2663,6 +2706,150 @@ def dryrun_phase(kernels):
     return [k.launches - b for k, b in zip(kernels, before)]
 
 
+def bench_phase(kernels):
+    """Phase bench: comic_tpu_torch.bench's legs and tools/beam_sweep at
+    full width with few calls, each checked as the docstring says. ->
+    (launches per kernel, K1 launches at B=BENCH_B and K=3, launches per
+    beam_sweep beam)"""
+    import math
+
+    import torch
+
+    from comic_tpu_torch import bench
+    from comic_tpu_torch.models.captioner import max_decode_steps
+    from comic_tpu_torch.tools import beam_sweep
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    config, spec, params, vocab = bench.flagship_model(device)
+    steps = max_decode_steps(config, vocab)
+    serve_spec = bench.worst_case(spec)
+    small = dict(iters=BENCH_ITERS, warmup=1, rounds=BENCH_ROUNDS)
+    calls = 1 + BENCH_ROUNDS * BENCH_ITERS
+    k1, k2 = (k.__name__ for k in kernels)
+    for k in kernels:
+        k.launches = 0
+    got = {}
+
+    def leg(name, want, fn, *args, **kw):
+        """Run a leg; its launches must be ``want`` ({kernel: n}, None: any
+        number above 0). A leg run again adds to its launches."""
+        before = bench.kernel_launches()
+        out = fn(*args, **kw)
+        n = bench.launches_since(before)
+        for kern, w in want.items():
+            if (n[kern] <= 0) if w is None else (n[kern] != w):
+                raise AssertionError(f"bench {name}: {kern} launched "
+                                     f"{n[kern]} times, expected "
+                                     f"{'some' if w is None else w}")
+        got[name] = {k: got.get(name, {}).get(k, 0) + v
+                     for k, v in n.items()}
+        return out
+
+    def serving(batch):
+        """-> ms of a worst-case batch; K1 on every step of every call."""
+        _, _, ms_by_batch, _ = leg(
+            f"serving_b{batch}", {k1: steps * calls, k2: 0},
+            bench.bench_serving, config, serve_spec, params, steps, device,
+            batches=(batch,), **small)
+        return ms_by_batch[batch]
+
+    def realistic():
+        return leg("serving_realistic", {k1: 40 * calls, k2: 0},
+                   bench.bench_serving_realistic, config, serve_spec, params,
+                   device, batch=BENCH_B, **small)[1]
+
+    def floor():
+        return leg("serving_floor", {k2: 0}, bench.bench_serving_floor,
+                   config, spec, params, steps, device, batch=BENCH_B,
+                   **small)
+
+    b25_ms = serving(25)
+    # the three batch-BENCH_B legs in BENCH_TURNS rotating turns, each leg's
+    # best kept: the host-bound loop drifts by tens of % over seconds,
+    # more than a 40-step batch saves against a 60-step one
+    b_legs = {"worst": lambda: serving(BENCH_B), "realistic": realistic,
+              "floor": floor}
+    order, b_ms = list(b_legs), {}
+    for turn in range(BENCH_TURNS):
+        for name in order[turn:] + order[:turn]:
+            b_ms[name] = min(b_legs[name](), b_ms.get(name, math.inf))
+    floor_ms, real_ms = b_ms["floor"], b_ms["realistic"]
+    ms_by_batch = {25: b25_ms, BENCH_B: b_ms["worst"]}
+    real_cps = BENCH_B / (real_ms / 1e3)
+    best = max(b / (ms / 1e3) for b, ms in ms_by_batch.items())
+    roofline = leg("roofline_serving", {k1: steps, k2: 0},
+                   bench.roofline_serving, config, serve_spec, params, steps,
+                   device, ms_by_batch[BENCH_B], floor_ms, batch=BENCH_B)
+    xe_ms, xe_k_ms, xe_fields = leg(
+        "xe_step", {k1: 0, k2: 0}, bench.bench_xe_step, config, spec, params,
+        device, k=2, iters_k=1, **small)
+    xe_eps, _, xe_by_batch = leg(
+        "xe_best", {k1: 0, k2: 0}, bench.bench_xe_best, config, spec, params,
+        device, batches=BENCH_XE_BATCHES, k=2, iters=1, warmup=1, rounds=1)
+    roll_ms, scst_ms, scst_fields = leg(
+        "scst", {k1: None, k2: None}, bench.bench_scst, config, spec, params,
+        vocab, device, **small)
+    eps_on, eps_off = leg(
+        "scst_loop", {k1: None, k2: None}, bench.bench_scst_loop, config,
+        spec, params, vocab, device, steps=BENCH_LOOP_STEPS, warmup=1,
+        runs=1)
+    beams = {}
+    for beam in BENCH_BEAMS:
+        (row,) = leg(f"beam{beam}", {k1: 0 if beam == 1 else steps * calls,
+                                     k2: steps * calls if beam == 1 else 0},
+                     lambda: list(beam_sweep.sweep(
+                         config, spec, params, vocab, device, [beam],
+                         batch=BENCH_B, **small)))
+        beams[beam] = row["serve_ms"]
+
+    timings = {"serve_ms": ms_by_batch, "floor_ms": floor_ms,
+               "realistic_ms": real_ms, "realistic_cps": real_cps,
+               "best_cps": best, "xe_ms": xe_ms, "xe_k_ms": xe_k_ms,
+               "xe_best_eps": xe_eps, "xe_eps": xe_by_batch,
+               "scst_rollout_ms": roll_ms, "scst_train_ms": scst_ms,
+               "scst_loop_eps": [eps_on, eps_off], "beam_ms": beams}
+    fields = {**roofline, **xe_fields, **scst_fields}
+    budget = fields.pop("decode_step_budget_melems")
+
+    def numbers(x):
+        if isinstance(x, dict):
+            x = list(x.values())
+        if isinstance(x, list):
+            return [v for item in x for v in numbers(item)]
+        return [x]
+
+    if not all(math.isfinite(v) and v > 0 for v in numbers(timings)):
+        raise AssertionError(f"bench: a time or rate is not finite and "
+                             f"positive: {timings}")
+    if not all(math.isfinite(v) and v >= 0
+               for v in numbers([fields, budget])):
+        raise AssertionError(f"bench: a cost-model field is not finite or "
+                             f"is negative: {fields}, {budget}")
+    worst_ms = ms_by_batch[BENCH_B]
+    if not floor_ms < real_ms < worst_ms:
+        raise AssertionError(f"bench b{BENCH_B}: floor {floor_ms:.2f} ms, "
+                             f"realistic {real_ms:.2f} ms, worst case "
+                             f"{worst_ms:.2f} ms are out of order")
+    print(f"bench b{BENCH_B}: floor {floor_ms:.2f} ms < realistic (40 "
+          f"steps) {real_ms:.2f} ms < worst case ({steps} steps) "
+          f"{worst_ms:.2f} ms; b25 {ms_by_batch[25]:.2f} ms; beam 1/2/5/7 "
+          + ", ".join(f"{beams[b]:.2f}" for b in BENCH_BEAMS) + " ms; XE "
+          f"step {xe_ms:.2f} ms, XE best {xe_eps:.1f} examples/s "
+          f"{xe_by_batch}; SCST rollout {roll_ms:.2f} ms, train "
+          f"{scst_ms:.2f} ms, loop {eps_on:.1f} / {eps_off:.1f} examples/s "
+          f"(overlap on / off); best of {BENCH_ROUNDS} rounds of "
+          f"{BENCH_ITERS} calls a leg, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print("bench launches: " + json.dumps(got))
+    print("bench cost model: " + json.dumps({**fields, "budget": budget}))
+    k1_b = sum(got[name][k1] for name in (
+        f"serving_b{BENCH_B}", "serving_floor", "serving_realistic",
+        "roofline_serving"))
+    return ([k.launches for k in kernels], k1_b,
+            {b: got[f"beam{b}"] for b in BENCH_BEAMS})
+
+
 def main():
     import torch
 
@@ -2795,6 +2982,24 @@ def main():
             rec[f"zoo_L{length}"]["launches"] = by_length.get(length, 0)
         rec["zoo_launches_by_L"] = by_length
     records["grouped_add_ln_attention"]["zoo_serve_launches"] = zoo["serve"]
+
+    # the bench's legs and beam_sweep at full width: K1 at B=BENCH_B with
+    # K=3 and beam_sweep's K; K2 at R=BENCH_B (beam 1). The bench's other
+    # batches run in python -m comic_tpu_torch.bench, not here
+    benched, k1_bench_b, by_beam = bench_phase(kernels)
+    k1_rec, k2_rec = (records[k.__name__] for k in kernels)
+    for i, k in enumerate(kernels):
+        records[k.__name__]["launches"] += benched[i]
+        records[k.__name__]["bench_launches"] = benched[i]
+    for rows in BENCH_BATCHES:
+        k1_rec[f"bench_b{rows}"]["launches"] = (
+            k1_bench_b if rows == BENCH_B else 0)
+    for beam, n in by_beam.items():
+        if beam == 1:
+            k2_rec[f"bench_r{BENCH_B}"]["launches"] = n[kernels[1].__name__]
+        else:
+            k1_rec[f"bench_b{BENCH_B}_k{beam}"]["launches"] = n[
+                kernels[0].__name__]
 
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -77,6 +77,13 @@ PARALLEL_MODULES = {"comic_tpu_torch.parallel",
 TOOLS_MODULES = {"comic_tpu_torch.tools.parity_gate",
                  "comic_tpu_torch.tools.kernel_phases"}
 
+# the bench and its tools
+BENCH_MODULES = {"comic_tpu_torch.bench",
+                 "comic_tpu_torch.tools.serve_check",
+                 "comic_tpu_torch.tools.batch_sweep",
+                 "comic_tpu_torch.tools.beam_sweep",
+                 "comic_tpu_torch.tools.loader_bench"}
+
 # libraries that only the functions needing them import
 OPTIONAL_LIBRARIES = ("tensorflow", "tensorstore", "h5py", "PIL", "cv2")
 
@@ -99,21 +106,24 @@ def test_port_imports_no_jax_and_no_comic_tpu():
     assert ZOO_MODULES <= names, ZOO_MODULES - names
     assert PARALLEL_MODULES <= names, PARALLEL_MODULES - names
     assert TOOLS_MODULES <= names, TOOLS_MODULES - names
+    assert BENCH_MODULES <= names, BENCH_MODULES - names
     assert bad.strip() == "[]"
     # importing every module pulls in none of the optional libraries
     assert lazy.strip() == "[]"
 
 
 def _help_without_jax(cli, package="cli"):
-    """``python -m comic_tpu_torch.<package>.<cli> --help`` with JAX and
+    """``python -m comic_tpu_torch.<package>.<cli> --help`` (``package``
+    empty: ``comic_tpu_torch.<cli>``) with JAX and
     comic_tpu made unimportable, and the optional libraries too (the card's
-    machine has none of h5py, TensorFlow, tensorstore, PIL or cv2; each is
-    imported only by the functions that need it)."""
+    machine may lack any of h5py, TensorFlow, tensorstore, PIL or cv2; each
+    is imported only by the functions that need it)."""
     blocked = ["jax", "flax", "optax", "comic_tpu", *OPTIONAL_LIBRARIES]
+    module = ".".join(["comic_tpu_torch"] + [package] * bool(package)
+                      + [cli])
     block = (f"import sys; sys.modules.update(dict.fromkeys({blocked!r})); "
              f"import runpy; sys.argv = ['{cli}', '--help']; "
-             f"runpy.run_module('comic_tpu_torch.{package}.{cli}', "
-             "run_name='__main__')")
+             f"runpy.run_module('{module}', run_name='__main__')")
     out = subprocess.run([sys.executable, "-c", block], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=120)
@@ -135,6 +145,17 @@ def test_parity_gate_runs_without_jax():
     out = _help_without_jax("parity_gate", package="tools")
     assert "--target_cider" in out and "--allow_ptb_fallback" in out
     assert "--device" in out
+
+
+@pytest.mark.parametrize("package,cli,flags", [
+    ("", "bench", ("--device",)),
+    ("tools", "serve_check", ("--device", "batch")),
+    ("tools", "batch_sweep", ("--device", "batches")),
+    ("tools", "beam_sweep", ("--device", "beams")),
+    ("tools", "loader_bench", ("--images", "--min_s", "target"))])
+def test_bench_and_tools_run_without_jax(package, cli, flags):
+    out = _help_without_jax(cli, package)
+    assert all(f in out for f in flags)
 
 
 @pytest.mark.parametrize("cli,flags", [
@@ -166,9 +187,10 @@ def _small_spec():
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(no_card, tmp_path):
-    from comic_tpu_torch import params, resolve_device
+    from comic_tpu_torch import bench, params, resolve_device
     from comic_tpu_torch.inference import make_serve_fn, run_inference
     from comic_tpu_torch.models.captioner import init_params
+    from comic_tpu_torch.tools import batch_sweep, beam_sweep, serve_check
     from comic_tpu_torch.training.checkpoints import save_compact
 
     config, spec = _small_spec()
@@ -180,7 +202,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(no_card, tmp_path):
                  lambda: init_params(spec),
                  lambda: params.from_jax_tree(params.to_jax_tree(tree)),
                  lambda: make_serve_fn(spec, config, 4),
-                 lambda: run_inference(config, ckpt)):
+                 lambda: run_inference(config, ckpt),
+                 lambda: bench.main([]), lambda: serve_check.main([]),
+                 lambda: batch_sweep.main([]), lambda: beam_sweep.main([]),
+                 lambda: bench.flagship_model()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
