@@ -137,7 +137,32 @@ Phases (any failure raises and exits non-zero):
      finite and not negative; K1 launches 60 times a worst-case call (the
      EOS is unreachable), 40 a realistic call, 60 in the counted serve;
      K2 60 times a beam-1 call; neither in an XE step; floor ms <
-     realistic ms < worst-case ms at batch 128.
+     realistic ms < worst-case ms at batch 128;
+ 25. tokens-serve: word tokens (10,003 outputs, 30 steps) and char tokens
+     (the character vocabulary, 150 steps) at full width in bf16 from a
+     compact checkpoint, VARIANT_BATCHES batches of 25 through
+     run_inference at beam 3 (K1 once on every beam step, K2 never) and
+     greedy (K2 once on every step, K1 never), every caption holding words
+     (characters); then float32 with TF32 off at batch 2: the card's and
+     the CPU's attention memory within TOL_ZOO and top-beam ids equal; for
+     word tokens one float32 train step card vs CPU, as train-agree;
+ 26. cells-serve: the LN_LSTM and GRU decoders (radix tokens), checked as
+     tokens-serve, each with its train step card vs CPU;
+ 27. attn-variants: one batch of 25 at beam 3 in bf16 for every attention
+     configuration Config accepts outside the kernels' domain (dot
+     alignment, sigmoid probability, the independent projection, none
+     with and without the context layer): K1 and K2 launch 0 times; the
+     context layer on add_LN/softmax/tied stays inside it, K1 once on
+     every step; each card vs CPU as tokens-serve;
+ 28. zoo-native: Inception-V3, Inception-V4 and Inception-ResNet-V2 at 299
+     (L=289) and NASNet-large and PNASNet-large at 331 (L=441), seeded
+     uint8 images drawn at that size (the file pipeline resizes to 256
+     and never upsamples), ZOO_BATCHES batches of 25 through make_serve_fn
+     at beam 3 in bf16: K1 once on every beam step, every caption holding
+     words; inception_v3 and pnasnet_large also one batch greedy (K2 on
+     every step) and card vs CPU in float32 at batch 2 (memory within
+     TOL_ZOO, ids equal).
+Each of phases 25-28 prints its seconds.
 
 Phase 3 holds the kernels at the serving shapes, at K2's eval-perplexity
 batch, at the SCST rollout's shapes (K1 at batch 10, beam 7; K2 at 10
@@ -147,7 +172,9 @@ serving batch at the zoo's other attention sizes, L=49 and L=144 (the
 COCO server, gate and zoo shapes also checked bitwise repeatable), and
 the bench's: K1 at B=64, 128 and 256 with K=3 and at B=128 with K=2, 5
 and 7 (tools/beam_sweep), K2 at R=128 (its beam 1), also checked bitwise
-repeatable.
+repeatable; and both at the serving batch at L=289 and L=441, the
+attention sizes of zoo-native's nets at 299 and 331 (bitwise repeatable
+too).
 Phases 4 and 5 also time one steady batch
 and profile one more, phases 7 and 8 profile one more train step
 (torch.profiler; the per-kernel tables go to smoke_out/profile_*.txt).
@@ -413,7 +440,8 @@ def check_kernels():
     # eval sweep; K2's rows there are eval_shape's 61), and both at the
     # overfit gate's batch of 5 (its sweeps and SCST rollouts at beam 3, its
     # eval passes and greedy baselines), and both at the serving batch at
-    # the encoder zoo's other attention sizes (ZOO_L)
+    # the encoder zoo's other attention sizes (ZOO_L at 224, ZOO_NATIVE_L at
+    # the 299/331 nets' own sizes)
     shapes = [("grouped_add_ln_attention", K, B, "main", L),
               ("fused_add_ln_attention", None, B, "main", L),
               ("fused_add_ln_attention", None, EVAL_B, "eval_shape", L),
@@ -423,7 +451,7 @@ def check_kernels():
               ("grouped_add_ln_attention", GATE_BEAM, GATE_B, "gate_shape",
                L),
               ("fused_add_ln_attention", None, GATE_B, "gate_shape", L)]
-    for length in ZOO_L:
+    for length in ZOO_L + ZOO_NATIVE_L:
         shapes += [("grouped_add_ln_attention", K, B, f"zoo_L{length}",
                     length),
                    ("fused_add_ln_attention", None, B, f"zoo_L{length}",
@@ -556,22 +584,30 @@ def check_kernels():
 
 
 def smoke_config(beam: int, batch: int, dtype: str,
-                 cnn_name: str = "inception_v1"):
+                 cnn_name: str = "inception_v1", **overrides):
     """Full-width COMIC-256 serving config with a COCO-sized vocabulary
     (10,000 words: 2 radix digits per word, 60 decode steps), with encoder
-    ``cnn_name`` attending to its default endpoint."""
+    ``cnn_name`` attending to its default endpoint, and ``overrides`` set
+    (char tokens take the character vocabulary)."""
     from comic_tpu_torch.configuration import Config
     from comic_tpu_torch.models.encoders import get_encoder
+    from comic_tpu_torch.tokenization import build_char_vocab
 
     wtoi = {"<PAD>": -1}
     wtoi.update({f"w{i}": i for i in range(10000)})
     wtoi.update({"<UNK>": 10000, "<GO>": 10001, "<EOS>": 10002})
     itow = {str(i): w for w, i in wtoi.items()}
-    return Config(wtoi=wtoi, itow=itow, log_path=os.path.join(OUT, "exp"),
-                  batch_size_infer=batch, infer_beam_size=beam,
-                  compute_dtype=dtype, infer_early_exit=True,
-                  cnn_name=cnn_name,
-                  cnn_fm_attention=get_encoder(cnn_name).default_fm_endpoint)
+    config = Config(wtoi=wtoi, itow=itow, log_path=os.path.join(OUT, "exp"),
+                    batch_size_infer=batch, infer_beam_size=beam,
+                    compute_dtype=dtype, infer_early_exit=True,
+                    cnn_name=cnn_name,
+                    cnn_fm_attention=get_encoder(cnn_name)
+                    .default_fm_endpoint, **overrides)
+    if config.token_type == "char":
+        chars = build_char_vocab()
+        config.update(wtoi=chars.wtoi,
+                      itow={str(i): c for i, c in chars.itow.items()})
+    return config
 
 
 def smoke_weights(spec):
@@ -604,13 +640,14 @@ def smoke_weights(spec):
     return params
 
 
-def image_batches(n_batches, batch):
+def image_batches(n_batches, batch, size=256):
+    """Seeded uint8 (batch, size, size, 3) images with COCO-style names."""
     import numpy as np
 
     rng = np.random.default_rng(SEED)
     out = []
     for i in range(n_batches):
-        imgs = rng.integers(0, 256, (batch, 256, 256, 3), dtype=np.uint8)
+        imgs = rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
         names = [f"images/COCO_smoke_{i * batch + j:012d}.jpg"
                  for j in range(batch)]
         out.append((imgs, names))
@@ -688,38 +725,43 @@ def serve_phase(beam, kernel, ckpt_path, batches):
     return launches
 
 
-def card_vs_cpu(ckpt_state, cnn_name="inception_v1"):
-    """float32, TF32 off, batch 2, beam 3: the attention keys and the
-    top-beam ids of the card's serve and of the port's plain CPU path ->
-    (keys' max difference over their largest magnitude, {device: ids})."""
+def card_vs_cpu(ckpt_state, cnn_name="inception_v1", size=224, **overrides):
+    """float32, TF32 off, batch 2, beam 3, ``size`` x ``size`` inputs, the
+    smoke config with ``overrides``: the attention memory (keys and
+    values) and the top-beam ids of the card's serve and of the port's
+    plain CPU path -> (the memory's max difference over its largest
+    magnitude, {device: ids})."""
     import torch
 
     from comic_tpu_torch.data.preprocessing import preprocess_for
     from comic_tpu_torch.decoding import search
     from comic_tpu_torch.inference import make_serve_fn
-    from comic_tpu_torch.models.captioner import build_model_spec, tree_to
+    from comic_tpu_torch.models.captioner import (build_model_spec,
+                                                  max_decode_steps, tree_to)
     from comic_tpu_torch.tokenization import Vocabulary
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    config = smoke_config(3, 2, "float32", cnn_name)
+    config = smoke_config(3, 2, "float32", cnn_name,
+                          cnn_input_size=(size, size), **overrides)
     vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
     spec = build_model_spec(config, vocab)
-    images = image_batches(1, 2)[0][0]
-    keys, ids = {}, {}
+    # the host images are 256x256, or the net's own size where it is larger
+    images = image_batches(1, 2, max(size, 256))[0][0]
+    memory, ids = {}, {}
     for dev in ("cuda", "cpu"):
         params = tree_to(ckpt_state, torch.device(dev))
-        serve = make_serve_fn(spec, config, 60, collect_alignments=False,
-                              device=dev)
+        serve = make_serve_fn(spec, config, max_decode_steps(config, vocab),
+                              collect_alignments=False, device=dev)
         with torch.inference_mode():
-            _, memory = search._prepare_memory(
+            _, mem = search._prepare_memory(
                 params, spec, preprocess_for(cnn_name)(
-                    images, 224, 224, torch.device(dev)))
-        keys[dev] = memory.keys.cpu()
+                    images, size, size, torch.device(dev)))
+        memory[dev] = (mem.keys.cpu(), mem.values.cpu())
         ids[dev] = serve(params, images)[0].cpu()
-    keys_err = ((keys["cuda"] - keys["cpu"]).abs().max()
-                / keys["cpu"].abs().max()).item()
-    return keys_err, ids
+    err = max(((got - want).abs().max() / want.abs().max()).item()
+              for got, want in zip(memory["cuda"], memory["cpu"]))
+    return err, ids
 
 
 def agreement_phase(ckpt_state):
@@ -727,7 +769,7 @@ def agreement_phase(ckpt_state):
     keys_err, ids = card_vs_cpu(ckpt_state)
     same = (ids["cuda"] == ids["cpu"]).float().mean().item()
     rows = (ids["cuda"] == ids["cpu"]).all(dim=1).sum().item()
-    print(f"float32 card vs CPU plain path: attention keys max rel error "
+    print(f"float32 card vs CPU plain path: attention memory max rel error "
           f"{keys_err:.2e} (tol 1e-4); top-beam ids agree at {same:.1%} of "
           f"positions, {rows}/2 captions identical")
     if keys_err > 1e-4:
@@ -962,12 +1004,13 @@ def worst_leaf_difference(got, want):
     return worst, worst_leaf
 
 
-def train_agree_phase(ckpt_state):
+def train_agree_phase(ckpt_state, tag="train-agree", **overrides):
     """Phase train-agree: float32, TF32 off, batch 2, full width, nothing
     frozen (the cnn_finetune stage's optimizer), dropout and augment off:
     one make_train_step step on the card and on the CPU from the same
-    parameters. The loss and every updated leaf are held to TOL_TRAIN
-    relative (a leaf against its own largest magnitude)."""
+    parameters, of the smoke config with ``overrides``. The loss and
+    every updated leaf are held to TOL_TRAIN relative (a leaf against its
+    own largest magnitude)."""
     import numpy as np
     import torch
 
@@ -982,13 +1025,14 @@ def train_agree_phase(ckpt_state):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    config = smoke_config(1, 2, "float32")
+    config = smoke_config(1, 2, "float32", **overrides)
     config.update(dropout_rnn_in=0.0, dropout_rnn_out=0.0, attn_keep_prob=1.0,
                   cnn_input_augment=False, freeze_scopes="", lr_start=1e-3)
     vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
     spec = build_model_spec(config, vocab)
     images = image_batches(1, 2)[0][0]
-    caps = pad_rows([encode_caption_tokens(t, "radix", vocab, 256)
+    caps = pad_rows([encode_caption_tokens(t, config.token_type, vocab,
+                                           config.radix_base)
                      for _, t in caption_records("agree", 2, 0)], 42)
     kernels = (k1.grouped_add_ln_attention, k2.fused_add_ln_attention)
     out = {}
@@ -1006,14 +1050,15 @@ def train_agree_phase(ckpt_state):
                     {p: v.detach().cpu() for p, v in tree_items(state.params)})
     loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     worst, worst_leaf = worst_leaf_difference(out["cuda"][1], out["cpu"][1])
-    print(f"train-agree (float32, TF32 off, batch 2, one step, nothing "
+    print(f"{tag} (float32, TF32 off, batch 2, one step, nothing "
           f"frozen): loss card {out['cuda'][0]:.6f} vs CPU "
           f"{out['cpu'][0]:.6f}, relative difference {loss_rel:.2e} (tol "
           f"{TOL_TRAIN:.0e}); largest relative difference of the updated "
           f"parameters {worst:.2e} at {worst_leaf} (tol {TOL_TRAIN:.0e})")
     if not (loss_rel <= TOL_TRAIN and worst <= TOL_TRAIN
             and np.isfinite(out["cuda"][0])):
-        raise AssertionError("the card's train step disagrees with the CPU's")
+        raise AssertionError(f"{tag}: the card's train step disagrees "
+                             "with the CPU's")
 
 
 def trace_phase(ckpt_path, kernels):
@@ -2271,6 +2316,24 @@ class DecodeSteps:
         self.search.step_grouped, self.search.decoder_step = self.saved
 
 
+def counted_run(config, ckpt_path, pipe, kernels):
+    """run_inference on the card with every kernel's count set to 0 just
+    before and read just after -> (launches per kernel, the DecodeSteps of
+    the run, seconds, captions)."""
+    from comic_tpu_torch.inference import run_inference
+
+    for k in kernels:
+        k.launches = 0
+    with DecodeSteps() as steps:
+        t0 = time.perf_counter()
+        _, json_path = run_inference(config, ckpt_path, pipe=pipe)
+        wall = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    with open(json_path) as f:
+        caps = [c["caption"] for c in json.load(f)]
+    return launches, steps, wall, caps
+
+
 def zoo_serve_phase(kernels):
     """Phase zoo-serve: every encoder comic_tpu registers, at 224 in bf16
     with COMIC-256's decoder: seeded port weights with BN statistics
@@ -2285,7 +2348,7 @@ def zoo_serve_phase(kernels):
 
     from comic_tpu_torch.data.preprocessing import preprocess_for
     from comic_tpu_torch.decoding import search
-    from comic_tpu_torch.inference import make_serve_fn, run_inference
+    from comic_tpu_torch.inference import make_serve_fn
     from comic_tpu_torch.models.captioner import (build_model_spec,
                                                   max_decode_steps, tree_to)
     from comic_tpu_torch.models.encoders import available_encoders
@@ -2300,23 +2363,16 @@ def zoo_serve_phase(kernels):
     def serve_counted(config, ckpt_path, pipe, kernel, name, beam):
         """run_inference with the counts set to 0 just before and read just
         after -> (launches, decode steps, seconds, peak GiB)."""
-        for k in kernels:
-            k.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        with DecodeSteps() as steps:
-            t0 = time.perf_counter()
-            _, json_path = run_inference(config, ckpt_path, pipe=pipe)
-            wall = time.perf_counter() - t0
-        launches = kernel.launches
+        got, steps, wall, caps = counted_run(config, ckpt_path, pipe,
+                                             kernels)
+        launches = got[kernels.index(kernel)]
         n_steps = steps.beam if beam > 1 else steps.greedy
-        with open(json_path) as f:
-            caps = json.load(f)
         n = sum(len(names) for _, names in pipe)
-        if len(caps) != n or not all(c["caption"] for c in caps):
+        if len(caps) != n or not all(caps):
             raise AssertionError(f"zoo-serve {name} beam {beam}: "
                                  f"{len(caps)} captions for {n} images, "
-                                 f"{sum(not c['caption'] for c in caps)} "
-                                 "empty")
+                                 f"{sum(not c for c in caps)} empty")
         if launches <= 0 or launches != n_steps:
             raise AssertionError(
                 f"zoo-serve {name} beam {beam}: {kernel.__name__} launched "
@@ -2850,6 +2906,242 @@ def bench_phase(kernels):
             {b: got[f"beam{b}"] for b in BENCH_BEAMS})
 
 
+# phases 25-28: the configurations besides COMIC-256's radix tokens, LSTM,
+# add_LN/softmax/tied attention and 224 inputs. Each serves at full width
+# (bf16, the smoke vocabulary) with the kernels' launches counted against
+# the decode steps, and is then held card vs the port's CPU path (float32,
+# TF32 off, batch 2: the attention memory within TOL_ZOO of its scale, the
+# top-beam ids equal). VARIANT_BATCHES batches of B a configuration
+# (attn-variants serves one at beam 3)
+VARIANT_BATCHES = 2
+# {name: (Config fields, inside the kernels' domain)}
+TOKEN_VARIANTS = {"word": (dict(token_type="word"), True),
+                  "char": (dict(token_type="char"), True)}
+CELL_VARIANTS = {"LN_LSTM": (dict(rnn_name="LN_LSTM"), True),
+                 "GRU": (dict(rnn_name="GRU"), True)}
+# every attention configuration Config accepts outside the kernels' domain
+# (K1 and K2 launch 0 times; none without the context layer feeds the raw
+# 832 channels back), and the context layer on add_LN/softmax/tied, inside
+ATTN_VARIANTS = {
+    "dot": (dict(attn_alignment_method="dot"), False),
+    "sigmoid": (dict(attn_probability_fn="sigmoid"), False),
+    "independent": (dict(cnn_fm_projection="independent"), False),
+    "none": (dict(cnn_fm_projection="none"), False),
+    "none_context": (dict(cnn_fm_projection="none",
+                          attn_context_layer=True), False),
+    "context": (dict(attn_context_layer=True), True)}
+# the zoo at its native input sizes: 17x17 memories at 299 (L=289), 21x21
+# at 331 (L=441); the host images are drawn at that size, since the file
+# pipeline resizes to 256 and never upsamples. One net of each size also
+# serves greedy and is held card vs CPU
+ZOO_NATIVE = {"inception_v3": 299, "inception_v4": 299,
+              "inception_resnet_v2": 299, "nasnet_large": 331,
+              "pnasnet_large": 331}
+ZOO_NATIVE_AGREE = ("inception_v3", "pnasnet_large")
+ZOO_NATIVE_L = (289, 441)
+
+
+def expected_launches(kernels, steps, beam, inside):
+    """One launch of K1 a beam step, of K2 a greedy step, inside the
+    kernels' domain; none outside it."""
+    want = [0] * len(kernels)
+    if inside:
+        want[0 if beam > 1 else 1] = steps.beam if beam > 1 else steps.greedy
+    return want
+
+
+def variants_phase(phase, variants, kernels, n_batches, beams, xe=()):
+    """Phases tokens-serve, cells-serve, attn-variants: each configuration
+    of ``variants`` ({name: (Config fields, inside the kernels' domain)})
+    at full width in bf16: seeded weights (smoke_weights; <EOS> held down
+    for word and char tokens, whose first 40 ids are not radix digits), a
+    compact checkpoint and ``n_batches`` batches of B seeded images through
+    run_inference at each of ``beams``: the launches against the decode
+    steps (expected_launches) and every caption holding words (characters
+    for char tokens); one steady batch at beam 3 timed apart; then card vs
+    CPU in float32 (card_vs_cpu), and for the names in ``xe`` one float32
+    train step card vs CPU (train_agree_phase). -> launches per kernel"""
+    import torch
+
+    from comic_tpu_torch.inference import make_serve_fn
+    from comic_tpu_torch.models.captioner import (build_model_spec,
+                                                  max_decode_steps,
+                                                  start_end_ids, tree_to)
+    from comic_tpu_torch.tokenization import Vocabulary
+    from comic_tpu_torch.training.checkpoints import save_compact
+
+    t_phase = time.perf_counter()
+    batches = image_batches(n_batches, B)
+    n_images = n_batches * B
+    names = [k.__name__ for k in kernels]
+    total = [0] * len(kernels)
+    for name, (fields, inside) in variants.items():
+        t0 = time.perf_counter()
+        config = smoke_config(3, B, "bfloat16", **fields)
+        config.update(log_path=os.path.join(OUT, phase, name))
+        vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+        spec = build_model_spec(config, vocab)
+        state = smoke_weights(spec)
+        if config.token_type != "radix":
+            state["decoder"]["output_projection"]["bias"][
+                start_end_ids(config, vocab)[1]] = -2.0
+        ckpt_path = save_compact(config.log_path, 1, state)
+        for beam in beams:
+            config.update(infer_beam_size=beam)
+            got, steps, wall, caps = counted_run(config, ckpt_path, batches,
+                                                 kernels)
+            want = expected_launches(kernels, steps, beam, inside)
+            n_steps = steps.beam if beam > 1 else steps.greedy
+            print(f"{phase} {name} beam {beam}: {len(caps)} captions in "
+                  f"{wall:.2f} s through run_inference (first call "
+                  f"included), {n_steps} decode steps, launches "
+                  f"{dict(zip(names, got))} (expected "
+                  f"{dict(zip(names, want))}); first caption "
+                  f"{caps[0][:60]!r}")
+            if len(caps) != n_images or not all(c.strip() for c in caps):
+                raise AssertionError(
+                    f"{phase} {name} beam {beam}: {len(caps)} captions for "
+                    f"{n_images} images, {sum(not c.strip() for c in caps)}"
+                    " empty")
+            if n_steps <= 0 or got != want:
+                raise AssertionError(f"{phase} {name} beam {beam}: launches "
+                                     f"{got} over {n_steps} decode steps, "
+                                     f"expected {want}")
+            total = [t + g for t, g in zip(total, got)]
+        config.update(infer_beam_size=3)
+        params = tree_to(state, torch.device("cuda"))
+        serve = make_serve_fn(spec, config, max_decode_steps(config, vocab),
+                              collect_alignments=False)
+        batch_ms = median_ms(lambda: serve(params, batches[0][0]), iters=3,
+                             warmup=1)
+        print(f"{phase} {name}: steady batch of {B} at beam 3 "
+              f"{batch_ms:.2f} ms ({B / batch_ms * 1e3:.1f} captions/s)")
+        del params, serve
+        err, ids = card_vs_cpu(state, **fields)
+        equal = torch.equal(ids["cuda"], ids["cpu"])
+        print(f"{phase} {name} (float32, TF32 off, batch 2, beam 3): "
+              f"attention memory max rel error {err:.2e} (tol "
+              f"{TOL_ZOO:.0e}), top-beam ids "
+              f"{'equal' if equal else 'DIFFER'} {tuple(ids['cpu'].shape)}")
+        if err > TOL_ZOO or not equal:
+            raise AssertionError(f"{phase} {name}: the card disagrees with "
+                                 "the CPU")
+        if name in xe:
+            train_agree_phase(state, tag=f"{phase} {name} train-agree",
+                              **fields)
+        shutil.rmtree(config.log_path)
+        print(f"{phase} {name}: {time.perf_counter() - t0:.1f} s")
+    print(f"{phase}: every configuration passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def zoo_native_phase(kernels):
+    """Phase zoo-native: the ZOO_NATIVE nets at their own input sizes in
+    bf16 with COMIC-256's decoder: seeded weights (smoke_weights) and
+    ZOO_BATCHES batches of B seeded uint8 images drawn at that size,
+    through make_serve_fn at beam 3; K1 must launch once on every beam
+    step (0 K2) at L=289 or 441, and every caption hold words; the
+    encoder and one steady batch are timed apart. The ZOO_NATIVE_AGREE
+    nets also serve one batch greedy (K2 on every step) and are held card
+    vs CPU in float32 at batch 2 (card_vs_cpu). ->
+    {"k1": {L: launches}, "k2": {L: launches}}"""
+    import torch
+
+    from comic_tpu_torch.data.preprocessing import preprocess_for
+    from comic_tpu_torch.decoding import search
+    from comic_tpu_torch.inference import make_serve_fn
+    from comic_tpu_torch.models.captioner import (build_model_spec,
+                                                  max_decode_steps, tree_to)
+    from comic_tpu_torch.tokenization import Vocabulary, ids_to_captions
+
+    t_phase = time.perf_counter()
+    names = [k.__name__ for k in kernels]
+    out = {"k1": {}, "k2": {}}
+    for name, size in ZOO_NATIVE.items():
+        t0 = time.perf_counter()
+        config = smoke_config(3, B, "bfloat16", name,
+                              cnn_input_size=(size, size))
+        vocab = Vocabulary.from_str_itow(config.wtoi, config.itow)
+        spec = build_model_spec(config, vocab)
+        state = smoke_weights(spec)
+        params = tree_to(state, torch.device("cuda"))
+        batches = image_batches(ZOO_BATCHES, B, size)
+        preprocess = preprocess_for(name)
+
+        @torch.inference_mode()
+        def encode():
+            return search._prepare_memory(params, spec, preprocess(
+                batches[0][0], size, size, torch.device("cuda")))
+
+        length, channels = (encode()[1].keys.shape[1],
+                            spec.decoder.attention.memory_channels)
+        enc_ms = median_ms(encode, iters=5, warmup=2)
+        if length not in ZOO_NATIVE_L:
+            raise AssertionError(f"zoo-native {name} at {size}: L={length}, "
+                                 f"expected one of {ZOO_NATIVE_L}")
+        for beam in ((3, 1) if name in ZOO_NATIVE_AGREE else (3,)):
+            config.update(infer_beam_size=beam)
+            serve = make_serve_fn(spec, config,
+                                  max_decode_steps(config, vocab),
+                                  collect_alignments=False)
+            pipe = batches if beam > 1 else batches[:1]
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            caps = []
+            with DecodeSteps() as steps:
+                t1 = time.perf_counter()
+                for images, _ in pipe:
+                    ids = serve(params, images)[0]
+                    caps += ids_to_captions(ids.cpu().numpy(),
+                                            config.token_type, vocab,
+                                            config.radix_base)
+                wall = time.perf_counter() - t1
+            got = [k.launches for k in kernels]
+            want = expected_launches(kernels, steps, beam, True)
+            n_steps = steps.beam if beam > 1 else steps.greedy
+            print(f"zoo-native {name} at {size}x{size} beam {beam}: "
+                  f"L={length} ({spec.fm_endpoint}), C={channels}; "
+                  f"{len(caps)} captions in {wall:.2f} s through "
+                  f"make_serve_fn (first call included), {n_steps} decode "
+                  f"steps, launches {dict(zip(names, got))}; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if len(caps) != len(pipe) * B or not all(caps):
+                raise AssertionError(f"zoo-native {name} beam {beam}: "
+                                     f"{sum(not c for c in caps)} empty "
+                                     "captions")
+            if n_steps <= 0 or got != want:
+                raise AssertionError(f"zoo-native {name} beam {beam}: "
+                                     f"launches {got} over {n_steps} decode "
+                                     f"steps, expected {want}")
+            key = "k1" if beam > 1 else "k2"
+            out[key][length] = out[key].get(length, 0) + sum(got)
+            if beam > 1:
+                batch_ms = median_ms(lambda: serve(params, pipe[0][0]),
+                                     iters=3, warmup=1)
+                print(f"zoo-native {name}: steady batch of {B} at beam 3 "
+                      f"{batch_ms:.2f} ms ({B / batch_ms * 1e3:.1f} "
+                      f"captions/s), encoder {enc_ms:.2f} ms")
+            del serve
+        del params
+        torch.cuda.empty_cache()
+        if name in ZOO_NATIVE_AGREE:
+            err, ids = card_vs_cpu(state, name, size)
+            equal = torch.equal(ids["cuda"], ids["cpu"])
+            print(f"zoo-native {name} at {size}x{size} (float32, TF32 off, "
+                  f"batch 2, beam 3): attention memory max rel error "
+                  f"{err:.2e} (tol {TOL_ZOO:.0e}), top-beam ids "
+                  f"{'equal' if equal else 'DIFFER'}")
+            if err > TOL_ZOO or not equal:
+                raise AssertionError(f"zoo-native {name}: the card disagrees "
+                                     "with the CPU")
+        print(f"zoo-native {name}: {time.perf_counter() - t0:.1f} s")
+    print(f"zoo-native: every net passed in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3000,6 +3292,30 @@ def main():
         else:
             k1_rec[f"bench_b{BENCH_B}_k{beam}"]["launches"] = n[
                 kernels[0].__name__]
+
+    # the configurations besides the main one: word and char tokens, the
+    # LN_LSTM and GRU cells, attention inside and outside the kernels'
+    # domain, and the zoo at its native 299 and 331 inputs
+    variants = {
+        "tokens-serve": variants_phase("tokens-serve", TOKEN_VARIANTS,
+                                       kernels, VARIANT_BATCHES, (3, 1),
+                                       xe=("word",)),
+        "cells-serve": variants_phase("cells-serve", CELL_VARIANTS, kernels,
+                                      VARIANT_BATCHES, (3, 1),
+                                      xe=tuple(CELL_VARIANTS)),
+        "attn-variants": variants_phase("attn-variants", ATTN_VARIANTS,
+                                        kernels, 1, (3,))}
+    native = zoo_native_phase(kernels)
+    for i, k in enumerate(kernels):
+        rec = records[k.__name__]
+        rec["launches"] += sum(v[i] for v in variants.values())
+        rec["variant_launches"] = {tag: v[i] for tag, v in variants.items()}
+    for k, by_length in zip(kernels, (native["k1"], native["k2"])):
+        rec = records[k.__name__]
+        rec["launches"] += sum(by_length.values())
+        for length in ZOO_NATIVE_L:
+            rec[f"zoo_L{length}"]["launches"] = by_length.get(length, 0)
+        rec["zoo_native_launches_by_L"] = by_length
 
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
